@@ -69,11 +69,12 @@ def gmic_quantize_u8(u: torch.Tensor) -> torch.Tensor:
 
 
 def rl_to_u8_device(img01: torch.Tensor, sigma: float = 1.0,
-                    iterations: int = 10) -> torch.Tensor:
-    """RL deblur + gmic quantize on the tensor's device: [0, 1] HWC in,
-    uint8 HWC out. The input is clipped at 0 first."""
+                    iterations: int = 10, psf: str = "gaussian") -> torch.Tensor:
+    """RL deblur + gmic quantize on the tensor's device: [0, 1] HWC or
+    NHWC in, uint8 of the same shape out. The input is clipped at 0
+    first."""
     img = torch.clamp(img01.to(torch.float32), min=0)
-    return gmic_quantize_u8(rl_deblur(img, float(sigma), int(iterations)))
+    return gmic_quantize_u8(rl_deblur(img, float(sigma), int(iterations), psf=psf))
 
 
 def rl_deblur_to_uint8(img01: np.ndarray, sigma: float = 1.0,
