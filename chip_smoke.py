@@ -13,10 +13,14 @@ limit as nvidia-smi reports them):
    at the server's adapted (136 x 136) and tiny-path (104 x 104) tiles;
    each shape also times cuDNN's own level 1 (channels_last convolutions,
    PReLU, max pool) as the library yardstick;
-3. K1 (one RL iteration) against a loop of its plain version, at
-   2000 x 3000 x 3, sigma 1, 10 iterations, plus the short-tail heights,
-   sigma 3, a 6000-wide strip and a batch of 3 that must equal its single
-   runs bit for bit;
+3. RL against a loop of its plain iteration, at 2000 x 3000 x 3, sigma
+   1, 10 iterations, plus the short-tail heights, sigma 3, a 6000-wide
+   strip, a ragged 97 x 131, and one case of each route with its launch
+   counts: sigma 6 and 10 on K1, 11 on K3 blurs, 22 on the plain blur; a
+   batch of 3 that must equal its single runs bit for bit; K1's times at
+   sigma 1 and 10 at 6 MP and at the server's (24, 480, 480) planes, with
+   a sequence of cuDNN calls as its library yardstick, and each separable
+   route's time per iteration at 6 MP;
 4. K3 (the standalone Gaussian blur) against its plain version at
    2000 x 3000 x 3 for sigma 1, 3 and 21 (r = 63, the largest radius
    under the limit), at 97 x 131, 5 x 7 (smaller than its radius) and
@@ -254,19 +258,77 @@ def phase_enc1(torch, card):
     return out[("bfloat16", 504, 504)]
 
 
+def rl_library(torch, d, taps):
+    """A sequence of cuDNN calls for one RL iteration on (P, H, W): per
+    blur a replicate pad and two depthwise 1-D convolutions (fp32 without
+    TF32), twice, with the clamp, divide and multiply between. A yardstick
+    only: the port never calls it."""
+    import torch.nn.functional as F
+
+    p = d.shape[0]
+    r = (len(taps) - 1) // 2
+    kv = torch.from_numpy(taps).to("cuda").reshape(1, 1, -1, 1).repeat(p, 1, 1, 1)
+    kh = kv.reshape(p, 1, 1, -1)
+
+    def blur(x):
+        x = F.pad(x[None], (r, r, r, r), mode="replicate")
+        return F.conv2d(F.conv2d(x, kv, groups=p), kh, groups=p)[0]
+
+    return lambda: d * blur(d / torch.clamp(blur(d), min=1e-8))
+
+
+def rl_time(torch, R, d, taps, reps):
+    """K1's warm time, its plain version's and its bound on (P, H, W)
+    planes at ``taps``, one iteration from u = d."""
+    tt = torch.from_numpy(taps).to("cuda")
+    out = torch.empty_like(d)
+    nbytes = 3 * d.numel() * 4 + tt.numel() * 4
+    r = (len(taps) - 1) // 2
+    # two separable blurs (2 passes of 2r+1 mul+add), the ratio's max and
+    # divide, the final multiply
+    flops = d.numel() * (2 * 2 * 2 * (2 * r + 1) + 3)
+    bms, by = bound_ms(nbytes, flops, "float32")
+    return dict(ms=time_ms(torch, lambda: R.rl_iter(d, d, tt, out=out), reps),
+                plain_ms=time_ms(torch, lambda: R.rl_iter_reference(d, d, taps),
+                                 max(2, reps // 4)),
+                bound_ms=bms, bound_by=by)
+
+
 def phase_rl(torch, card):
+    """RL deblur on the card against its plain iteration, on each route:
+    K1 (``fused``, R <= 32), K3 blurs (``separable_k3``, R <= 64) and the
+    tap-unrolled torch blur (``separable_plain``), each with the launch
+    counts and the route its radius picks; then K1's times."""
+    from nind_denoise_tpu_torch.ops import gauss_blur as G
     from nind_denoise_tpu_torch.ops import rl_deblur as RL
     from nind_denoise_tpu_torch.ops import rl_fused as R
 
     gen = torch.Generator().manual_seed(2)
-    tol = 2e-5  # fp32, as the CPU tests; the kernel rounds like the plain version
+    tol = 2e-5  # fp32, as the CPU tests; the kernels round like the plain version
+    expect = {"fused": lambda n: {"rl_iter": n, "gauss_blur": 0},
+              "separable_k3": lambda n: {"rl_iter": 0, "gauss_blur": 2 * n},
+              "separable_plain": lambda n: {"rl_iter": 0, "gauss_blur": 0}}
     product = None
+    # the product shape, the short-tail heights, sigma 3, a 6000-wide strip,
+    # a width that is no multiple of 4 (K1's scalar stores), then one case
+    # of each route: sigma 6 (R 18) and 10 (R 30, the darktable plugin's
+    # top) on K1, 11 (R 33) on K3, 22 (R 66) plain
     for (h, w, sigma, iters) in ((2000, 3000, 1.0, 10), (361, 140, 1.0, 10),
                                  (362, 140, 1.0, 10), (130, 260, 3.0, 10),
-                                 (24, 6000, 1.0, 10)):
+                                 (24, 6000, 1.0, 10), (97, 131, 2.0, 3),
+                                 (300, 260, 6.0, 3), (300, 260, 10.0, 3),
+                                 (300, 260, 11.0, 3), (260, 300, 22.0, 2)):
         img = (torch.rand(h, w, 3, generator=gen) + 0.05).to("cuda")
-        got = RL.rl_deblur(img, sigma, iters)
         taps = RL.gaussian_taps_np(sigma)
+        route = RL.route_for(RL.psf_radius(sigma))
+        before = {"rl_iter": R.launches, "gauss_blur": G.launches,
+                  "route": RL.routes[route]}
+        got = RL.rl_deblur(img, sigma, iters)
+        torch.cuda.synchronize()
+        launches = {"rl_iter": R.launches - before["rl_iter"],
+                    "gauss_blur": G.launches - before["gauss_blur"]}
+        check(launches == expect[route](iters) and RL.routes[route] == before["route"] + 1,
+              f"rl {h}x{w} sigma {sigma}: route {route}, launches {launches}")
         d = img.permute(2, 0, 1).contiguous()
         u = d
         for _ in range(iters):
@@ -277,21 +339,17 @@ def phase_rl(torch, card):
         check(bool(torch.isfinite(got).all()), f"rl {h}x{w}: non-finite output")
         check(err <= tol * max(1.0, ref.abs().max().item()),
               f"rl {h}x{w} sigma {sigma}: max err {err}")
-        rec = dict(phase="rl_iter", shape=[h, w, 3], sigma=sigma,
-                   iterations=iters, max_abs_err=err, tol=tol)
+        rec = dict(phase="rl_iter", shape=[h, w, 3], sigma=sigma, radius=len(taps) // 2,
+                   route=route, iterations=iters, launches=launches, max_abs_err=err,
+                   tol=tol)
         if product is None:
-            tt = torch.from_numpy(taps).to("cuda")
-            out = torch.empty_like(d)
-            nbytes = 3 * d.numel() * 4 + tt.numel() * 4
-            r = (len(taps) - 1) // 2
-            # two separable blurs (2 passes of 2r+1 mul+add), the ratio's
-            # max and divide, the final multiply
-            flops = d.numel() * (2 * 2 * 2 * (2 * r + 1) + 3)
-            bms, by = bound_ms(nbytes, flops, "float32")
-            rec.update(
-                ms=time_ms(torch, lambda: R.rl_iter(d, d, tt, out=out), 20),
-                plain_ms=time_ms(torch, lambda: R.rl_iter_reference(d, d, taps), 5),
-                bound_ms=bms, bound_by=by)
+            rec.update(rl_time(torch, R, d, taps, 20))
+            library = rl_library(torch, d, taps)
+            torch.backends.cudnn.allow_tf32 = False
+            rec.update(library_ms=time_ms(torch, library, 5),
+                       library_max_abs_err=(library() - R.rl_iter_reference(d, d, taps))
+                       .abs().max().item())
+            torch.backends.cudnn.allow_tf32 = True
             product = rec
         emit(card, **rec)
     batch = (torch.rand(3, 120, 176, 3, generator=gen) + 0.05).to("cuda")
@@ -300,6 +358,21 @@ def phase_rl(torch, card):
         check(torch.equal(together[i], RL.rl_deblur(batch[i], 1.0, 10)),
               f"rl batch member {i} differs from its single run")
     emit(card, phase="rl_iter", check="batch of 3 equals its single runs bit for bit")
+
+    # K1 where the operations bound it (sigma 10 at 6 MP) and at the
+    # server's planes (a group of eight 480 x 480 images); one iteration
+    # of each separable route at 6 MP
+    img = (torch.rand(2000, 3000, 3, generator=gen) + 0.05).to("cuda")
+    d = img.permute(2, 0, 1).contiguous()
+    emit(card, phase="rl_iter_time", shape=[3, 2000, 3000], sigma=10.0,
+         **rl_time(torch, R, d, RL.gaussian_taps_np(10.0), 10))
+    planes = (torch.rand(24, 480, 480, generator=gen) + 0.05).to("cuda")
+    emit(card, phase="rl_iter_time", shape=[24, 480, 480], sigma=1.0,
+         **rl_time(torch, R, planes, RL.gaussian_taps_np(1.0), 50))
+    for sigma in (11.0, 22.0):
+        emit(card, phase="rl_route_time", shape=[2000, 3000, 3], sigma=sigma,
+             route=RL.route_for(RL.psf_radius(sigma)), iterations=1,
+             ms=time_ms(torch, lambda: RL.rl_deblur(img, sigma, 1), 3))
     return product
 
 

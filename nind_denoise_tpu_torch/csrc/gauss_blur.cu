@@ -2,7 +2,9 @@
 //   out = G_W * (G_H * x)
 // on fp32 (H, W, C) images with interleaved channels, G the truncated
 // Gaussian of 2R+1 taps (1 <= R <= 64), each pass edge-replicating its own
-// input.
+// input. A second entry takes planar (P, H, W) fp32 as P images of one
+// channel, a plane per blockIdx.z: the RL deblur's route above radius 32
+// (ops/rl_deblur.py, "separable_k3") blurs its state that way.
 //
 // Replaces the TPU kernel nind_denoise_tpu/ops/pallas_blur.py
 // gauss_blur_pallas (through _gauss_blur_planar; body _kernel/_blur_band).
@@ -54,6 +56,9 @@ gauss_blur_kernel(const float* __restrict__ in, float* __restrict__ out,
   float* V = U + UW * UW;  // [TS][UW]  vertical pass, rows from y0
 
   const int tid = threadIdx.x;
+  const size_t plane = (size_t)blockIdx.z * H * W * C;
+  in += plane;
+  out += plane;
   const int c = blockIdx.x % C;
   const int x0 = (blockIdx.x / C) * TS, y0 = blockIdx.y * TS;
 
@@ -86,13 +91,11 @@ gauss_blur_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
-}  // namespace
-
-// in, out: (H, W, C) fp32 contiguous, distinct; taps: 2R+1 fp32 on the
-// device. Returns cudaGetLastError() after the launch.
-extern "C" int gauss_blur_launch(const void* in, void* out, const void* taps,
-                                 int H, int W, int C, int R, void* stream) {
-  if (R < 1 || R > MAX_R || H < 1 || W < 1 || C < 1) return (int)cudaErrorInvalidValue;
+// P images of (H, W, C), one after another
+int launch(const void* in, void* out, const void* taps, int P, int H, int W, int C, int R,
+           void* stream) {
+  if (R < 1 || R > MAX_R || P < 1 || P > 65535 || H < 1 || W < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
   const int TS = tile_for(R);
   const long long gx = (long long)((W + TS - 1) / TS) * C;
   const int gy = (H + TS - 1) / TS;
@@ -101,8 +104,24 @@ extern "C" int gauss_blur_launch(const void* in, void* out, const void* taps,
   cudaError_t e = cudaFuncSetAttribute(gauss_blur_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  gauss_blur_kernel<<<dim3((unsigned)gx, gy), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  gauss_blur_kernel<<<dim3((unsigned)gx, gy, P), NT, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(in), static_cast<float*>(out), static_cast<const float*>(taps),
       H, W, C, R, TS);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// in, out: (H, W, C) fp32 contiguous, distinct; taps: 2R+1 fp32 on the
+// device. Returns cudaGetLastError() after the launch.
+extern "C" int gauss_blur_launch(const void* in, void* out, const void* taps,
+                                 int H, int W, int C, int R, void* stream) {
+  return launch(in, out, taps, 1, H, W, C, R, stream);
+}
+
+// in, out: (P, H, W) fp32 contiguous, distinct; each plane blurred alone.
+extern "C" int gauss_blur_planes_launch(const void* in, void* out, const void* taps,
+                                        int P, int H, int W, int R, void* stream) {
+  return launch(in, out, taps, P, H, W, 1, R, stream);
 }

@@ -6,30 +6,35 @@ fp32 (H, W, C) blurred with the canonical truncated Gaussian of
 vertical pass then a horizontal pass, each edge-replicating its own input.
 
 ``gauss_blur`` launches the CUDA kernel for a CUDA tensor and runs
-``gauss_blur_reference``, the plain PyTorch version, for a CPU tensor.
-``launches`` counts kernel launches. No path of the port calls it yet; it
-is the public entry point, as in the JAX package.
+``gauss_blur_reference``, the plain PyTorch version, for a CPU tensor; it
+is the public entry point, as in the JAX package. ``blur_planes`` runs the
+same kernel over planar fp32 (P, H, W) with the taps given as a tensor
+(``rl_fused.blur`` on the CPU): ``ops/rl_deblur`` calls it on its
+``"separable_k3"`` route (32 < R <= 64). ``launches`` counts kernel
+launches of both.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
-from . import _build, rl_fused
-from .rl_deblur import gaussian_taps_np
+from . import _build, rl_deblur, rl_fused
 
 MAX_RADIUS = 64  # the kernel's largest shared-memory tile
 launches = 0
 
 _SIG = {"gauss_blur_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p],
+        "gauss_blur_planes_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
         + [ctypes.c_void_p]}
 
 
 def _taps(sigma: float) -> np.ndarray:
-    taps = gaussian_taps_np(sigma)
+    taps = rl_deblur.gaussian_taps_np(sigma)
     r = (len(taps) - 1) // 2
     if r > MAX_RADIUS:
         raise ValueError(f"gauss_blur: kernel radius {r} (sigma={sigma}) exceeds "
@@ -65,4 +70,41 @@ def gauss_blur(img_hwc: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
     global launches
     launches += 1
     _build.check(err, "gauss_blur")
+    return out
+
+
+def blur_planes(x: torch.Tensor, taps: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Blur each plane of (P, H, W) fp32 with ``taps`` (1-D fp32, 2R+1
+    values, R <= MAX_RADIUS, on x's device): the vertical pass, then the
+    horizontal, each edge-replicating its input. ``out`` (CUDA only):
+    buffer for the result, distinct from x; allocated when None."""
+    r = (taps.numel() - 1) // 2
+    if taps.dim() != 1 or taps.numel() != 2 * r + 1 or not 1 <= r <= MAX_RADIUS:
+        raise ValueError(f"blur_planes: the kernel takes 3..{2 * MAX_RADIUS + 1} "
+                         f"taps (odd), got {taps.numel()}")
+    if x.device.type == "cpu":
+        return rl_fused.blur(x, taps.tolist())
+    if x.device.type != "cuda":
+        raise ValueError(f"blur_planes: unsupported device {x.device}")
+    for name, t in (("x", x), ("taps", taps)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"blur_planes: {name} must be contiguous fp32 on {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"blur_planes: need (P, H, W), got {tuple(x.shape)}")
+    if out is None:
+        out = torch.empty_like(x)
+    elif (out.shape != x.shape or out.dtype != torch.float32
+          or not out.is_contiguous() or out.device != x.device):
+        raise ValueError("blur_planes: out must match x")
+    if out.data_ptr() == x.data_ptr():
+        raise ValueError("blur_planes: out must not alias x")
+    p, h, w = x.shape
+    lib = _build.library("gauss_blur", _SIG)
+    err = lib.gauss_blur_planes_launch(x.data_ptr(), out.data_ptr(), taps.data_ptr(),
+                                       p, h, w, r,
+                                       torch.cuda.current_stream(x.device).cuda_stream)
+    global launches
+    launches += 1
+    _build.check(err, "blur_planes")
     return out

@@ -7,9 +7,23 @@ ceil(3 sigma), normalized float32 taps), edge-replicate boundary, the
 multiplicative iteration ``u <- u * G*(d / max(G*u, 1e-8))`` from
 ``d = max(x, 0)``, and the ``*65535/256, cut, round`` post-op to uint8.
 
-Each iteration goes through ``ops/rl_fused.rl_iter``: the CUDA kernel on
-the GPU, its plain PyTorch version on the CPU. ``psf='gmic_fast'`` (the
-Deriche IIR) and ``dt != 1`` are not ported yet and raise.
+The route is chosen from the PSF radius R = ceil(3 sigma) before any
+launch (``route_for``), as the JAX package picks its fused kernel or its
+XLA path:
+
+- ``"fused"`` (R <= 32, the fused kernel's limit in both packages): one
+  ``rl_fused.rl_iter`` launch an iteration (kernel K1);
+- ``"separable_k3"`` (32 < R <= 64): the XLA path's body, blur, ratio,
+  blur, product, with each blur one ``gauss_blur.blur_planes`` launch
+  (kernel K3) over all planes and the ratio and product as torch ops;
+- ``"separable_plain"`` (R > 64, sigma > 21.33): the same body with the
+  tap-unrolled ``rl_fused.blur``, the counterpart of the JAX package's
+  lax ``_blur``.
+
+On the CPU every route runs the plain versions of its kernels, so all
+three equal ``rl_fused.rl_iter_reference`` iterated, bit for bit.
+``routes`` counts the calls per route. ``psf='gmic_fast'`` (the Deriche
+IIR) and ``dt != 1`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,7 +33,10 @@ import math
 import numpy as np
 import torch
 
-from . import rl_fused
+from . import gauss_blur, rl_fused
+
+ROUTES = ("fused", "separable_k3", "separable_plain")
+routes = dict.fromkeys(ROUTES, 0)
 
 
 def psf_radius(sigma: float) -> int:
@@ -33,6 +50,15 @@ def gaussian_taps_np(sigma: float) -> np.ndarray:
     x = np.arange(-r, r + 1, dtype=np.float32)
     k = np.exp(-(x ** 2) / np.float32(2.0 * sigma ** 2)).astype(np.float32)
     return k / k.sum()
+
+
+def route_for(radius: int) -> str:
+    """The RL route for PSF radius ``radius``; see the module doc."""
+    if radius <= rl_fused.MAX_RADIUS:
+        return "fused"
+    if radius <= gauss_blur.MAX_RADIUS:
+        return "separable_k3"
+    return "separable_plain"
 
 
 def rl_deblur(img: torch.Tensor, sigma: float = 1.0, iterations: int = 10,
@@ -51,13 +77,24 @@ def rl_deblur(img: torch.Tensor, sigma: float = 1.0, iterations: int = 10,
     n, h, w, c = x.shape
     d = torch.clamp(x.permute(0, 3, 1, 2).reshape(n * c, h, w)
                     .to(torch.float32), min=0.0).contiguous()
-    taps = torch.from_numpy(gaussian_taps_np(sigma)).to(d.device)
+    taps_np = gaussian_taps_np(sigma)
+    taps = torch.from_numpy(taps_np).to(d.device)
+    route = route_for(psf_radius(sigma))
+    routes[route] += 1
     # two u buffers, swapped each iteration; d stays read-only
     bufs = ([torch.empty_like(d), torch.empty_like(d)]
             if d.device.type == "cuda" else [None, None])
     u = d
-    for i in range(int(iterations)):
-        u = rl_fused.rl_iter(u, d, taps, out=bufs[i % 2])
+    if route == "fused":
+        for i in range(int(iterations)):
+            u = rl_fused.rl_iter(u, d, taps, out=bufs[i % 2])
+    else:
+        taps_list = taps_np.tolist()
+        blur = (gauss_blur.blur_planes if route == "separable_k3"
+                else lambda x, _: rl_fused.blur(x, taps_list))
+        for i in range(int(iterations)):
+            ratio = d / torch.clamp(blur(u, taps), min=rl_fused.EPS)
+            u = torch.mul(u, blur(ratio, taps), out=bufs[i % 2])
     out = u.reshape(n, c, h, w).permute(0, 2, 3, 1)
     return out[0] if img.dim() == 3 else out
 

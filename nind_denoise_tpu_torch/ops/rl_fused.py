@@ -21,7 +21,9 @@ import torch
 from . import _build
 
 EPS = 1e-8
-MAX_RADIUS = 16  # the kernel's shared-memory tile supports taps up to 2*16+1
+# the kernel's shared-memory tile takes taps up to 2*32+1, the limit of the
+# JAX package's fused kernel (pallas_blur._fused_band_h)
+MAX_RADIUS = 32
 launches = 0
 
 _SIG = {"rl_iter_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
