@@ -19,12 +19,15 @@ limit as nvidia-smi reports them):
    counts: sigma 6 and 10 on K1, 11 on K3 blurs, 22 on the plain blur; a
    batch of 3 that must equal its single runs bit for bit; K1's times at
    sigma 1 and 10 at 6 MP and at the server's (24, 480, 480) planes, with
-   a sequence of cuDNN calls as its library yardstick, and each separable
-   route's time per iteration at 6 MP;
+   a sequence of cuDNN calls as their library yardstick, and each
+   separable route's time per iteration at 6 MP;
 4. K3 (the standalone Gaussian blur) against its plain version at
    2000 x 3000 x 3 for sigma 1, 3 and 21 (r = 63, the largest radius
    under the limit), at 97 x 131, 5 x 7 (smaller than its radius) and
-   24 x 6000; sigma 22 must raise;
+   24 x 6000; its planar entry at (3, 2000, 3000) for R 30, 33 and 64,
+   each timed beside a replicate pad and two depthwise convolutions; every
+   radius 1-64 on a ragged 75 x 77 x 3 image and ragged (2, 75, 77)
+   planes; sigma 22 must raise;
 5. end to end: a seeded 16-bit 2000 x 3000 TIFF and a seeded funit-64 .npz
    checkpoint through ``denoise_cli --tiff-input`` in bf16 to a JPEG,
    with the kernel launch counts of that run; then a small image in fp32
@@ -278,8 +281,8 @@ def rl_library(torch, d, taps):
 
 
 def rl_time(torch, R, d, taps, reps):
-    """K1's warm time, its plain version's and its bound on (P, H, W)
-    planes at ``taps``, one iteration from u = d."""
+    """K1's warm time, its plain version's, its library yardstick's and its
+    bound on (P, H, W) planes at ``taps``, one iteration from u = d."""
     tt = torch.from_numpy(taps).to("cuda")
     out = torch.empty_like(d)
     nbytes = 3 * d.numel() * 4 + tt.numel() * 4
@@ -288,10 +291,17 @@ def rl_time(torch, R, d, taps, reps):
     # divide, the final multiply
     flops = d.numel() * (2 * 2 * 2 * (2 * r + 1) + 3)
     bms, by = bound_ms(nbytes, flops, "float32")
-    return dict(ms=time_ms(torch, lambda: R.rl_iter(d, d, tt, out=out), reps),
-                plain_ms=time_ms(torch, lambda: R.rl_iter_reference(d, d, taps),
-                                 max(2, reps // 4)),
-                bound_ms=bms, bound_by=by)
+    rec = dict(ms=time_ms(torch, lambda: R.rl_iter(d, d, tt, out=out), reps),
+               plain_ms=time_ms(torch, lambda: R.rl_iter_reference(d, d, taps),
+                                max(2, reps // 4)),
+               bound_ms=bms, bound_by=by)
+    library = rl_library(torch, d, taps)
+    torch.backends.cudnn.allow_tf32 = False
+    rec.update(library_ms=time_ms(torch, library, max(2, reps // 4)),
+               library_max_abs_err=(library() - R.rl_iter_reference(d, d, taps))
+               .abs().max().item())
+    torch.backends.cudnn.allow_tf32 = True
+    return rec
 
 
 def phase_rl(torch, card):
@@ -344,12 +354,6 @@ def phase_rl(torch, card):
                    tol=tol)
         if product is None:
             rec.update(rl_time(torch, R, d, taps, 20))
-            library = rl_library(torch, d, taps)
-            torch.backends.cudnn.allow_tf32 = False
-            rec.update(library_ms=time_ms(torch, library, 5),
-                       library_max_abs_err=(library() - R.rl_iter_reference(d, d, taps))
-                       .abs().max().item())
-            torch.backends.cudnn.allow_tf32 = True
             product = rec
         emit(card, **rec)
     batch = (torch.rand(3, 120, 176, 3, generator=gen) + 0.05).to("cuda")
@@ -376,10 +380,80 @@ def phase_rl(torch, card):
     return product
 
 
-def phase_gauss_blur(torch, card):
+def blur_vs_plain(torch, got, ref, what):
+    """K3's output against its plain version: (max abs error, limit); fails
+    on a wrong shape, a non-finite value or an error above the limit, the
+    JAX test's bar (0 when the kernel rounds like the plain version)."""
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    tol = 2e-6 * max(1.0, ref.abs().max().item())
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and err <= tol,
+          f"{what}: max err {err} > {tol}, or a bad output")
+    return err, tol
+
+
+def blur_library(torch, x, taps, hwc=False):
+    """K3's yardstick on (P, H, W) planes, or on (H, W, C) through a
+    channels-first view (``hwc``): a replicate pad and two depthwise 1-D
+    convolutions; the port never calls it."""
     import torch.nn.functional as F
 
+    planes = x.permute(2, 0, 1) if hwc else x
+    p = planes.shape[0]
+    r = (len(taps) - 1) // 2
+    kv = torch.from_numpy(taps).to("cuda").reshape(1, 1, -1, 1).repeat(p, 1, 1, 1)
+    kh = kv.reshape(p, 1, 1, -1)
+
+    def run():
+        xp = F.pad(planes[None], (r, r, r, r), mode="replicate")
+        y = F.conv2d(F.conv2d(xp, kv, groups=p), kh, groups=p)[0]
+        return y.permute(1, 2, 0) if hwc else y
+
+    return run
+
+
+def blur_times(torch, kernel, plain, library, ref, r, reps):
+    """K3's warm time beside its plain version's, its library yardstick's
+    (fp32 without TF32, with its error against ``ref``) and its bound:
+    8 bytes and 4(2r+1) flops an element."""
+    torch.backends.cudnn.allow_tf32 = False
+    lib_err = (library() - ref).abs().max().item()
+    lib_ms = time_ms(torch, library, 20)
+    torch.backends.cudnn.allow_tf32 = True
+    bms, by = bound_ms(8 * ref.numel(), 4 * (2 * r + 1) * ref.numel(), "float32")
+    return dict(ms=time_ms(torch, kernel, reps),
+                plain_ms=time_ms(torch, plain, 3 if r > 9 else 10),
+                library_ms=lib_ms, library_max_abs_err=lib_err, bound_ms=bms, bound_by=by)
+
+
+def gauss_blur_radius_sweep(torch, card):
+    """K3 at every radius 1-64 on a ragged HWC image and ragged planes,
+    each template instance against the plain version."""
     from nind_denoise_tpu_torch.ops import gauss_blur as G
+    from nind_denoise_tpu_torch.ops import rl_fused
+    from nind_denoise_tpu_torch.ops.rl_deblur import gaussian_taps_np
+
+    gen = torch.Generator().manual_seed(6)
+    img = torch.rand(75, 77, 3, generator=gen).to("cuda")
+    planes = torch.rand(2, 75, 77, generator=gen).to("cuda")
+    worst = {"hwc": 0.0, "planes": 0.0}
+    for r in range(1, G.MAX_RADIUS + 1):
+        sigma = (r - 0.5) / 3  # ceil(3 sigma) = r
+        taps = gaussian_taps_np(sigma)
+        check(len(taps) == 2 * r + 1, f"sigma {sigma}: radius {len(taps) // 2} != {r}")
+        tt = torch.from_numpy(taps).to("cuda")
+        for name, got, ref in (
+                ("hwc", G.gauss_blur(img, sigma), G.gauss_blur_reference(img, sigma)),
+                ("planes", G.blur_planes(planes, tt), rl_fused.blur(planes, taps.tolist()))):
+            err, _ = blur_vs_plain(torch, got, ref, f"gauss_blur {name} radius {r}")
+            worst[name] = max(worst[name], err)
+    emit(card, phase="gauss_blur_radii", radii=[1, G.MAX_RADIUS],
+         shapes={"hwc": [75, 77, 3], "planes": [2, 75, 77]}, max_abs_err=worst)
+
+
+def phase_gauss_blur(torch, card):
+    from nind_denoise_tpu_torch.ops import gauss_blur as G
+    from nind_denoise_tpu_torch.ops import rl_fused
     from nind_denoise_tpu_torch.ops.rl_deblur import gaussian_taps_np
 
     gen = torch.Generator().manual_seed(5)
@@ -387,42 +461,36 @@ def phase_gauss_blur(torch, card):
     for (h, w, sigma) in ((2000, 3000, 1.0), (2000, 3000, 3.0), (2000, 3000, 21.0),
                           (97, 131, 1.0), (5, 7, 3.0), (24, 6000, 1.0)):
         img = torch.rand(h, w, 3, generator=gen).to("cuda")
-        got = G.gauss_blur(img, sigma)
         ref = G.gauss_blur_reference(img, sigma)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        # the JAX test's bar; 0 when the kernel rounds like the plain version
-        tol = 2e-6 * max(1.0, ref.abs().max().item())
-        check(got.shape == img.shape and bool(torch.isfinite(got).all()),
-              f"gauss_blur {h}x{w}: bad output")
-        check(err <= tol, f"gauss_blur {h}x{w} sigma {sigma}: max err {err} > {tol}")
+        err, tol = blur_vs_plain(torch, G.gauss_blur(img, sigma), ref,
+                                 f"gauss_blur {h}x{w} sigma {sigma}")
         taps = gaussian_taps_np(sigma)
         r = (len(taps) - 1) // 2
         rec = dict(phase="gauss_blur", shape=[h, w, 3], sigma=sigma, radius=r,
                    max_abs_err=err, tol=tol)
         if h == 2000:
-            # yardstick: a replicate pad and two depthwise 1-D convolutions
-            # (fp32 without TF32); the port never calls it
-            kv = torch.from_numpy(taps).to("cuda").reshape(1, 1, -1, 1).repeat(3, 1, 1, 1)
-            kh = kv.reshape(3, 1, 1, -1)
-
-            def library():
-                x = F.pad(img.permute(2, 0, 1)[None], (r, r, r, r), mode="replicate")
-                return F.conv2d(F.conv2d(x, kv, groups=3), kh, groups=3)
-
-            torch.backends.cudnn.allow_tf32 = False
-            lib_err = (library()[0].permute(1, 2, 0) - ref).abs().max().item()
-            lib_ms = time_ms(torch, library, 20)
-            torch.backends.cudnn.allow_tf32 = True
-            bms, by = bound_ms(2 * 4 * img.numel(), 4 * (2 * r + 1) * img.numel(),
-                               "float32")
-            rec.update(ms=time_ms(torch, lambda: G.gauss_blur(img, sigma), 50),
-                       plain_ms=time_ms(torch, lambda: G.gauss_blur_reference(img, sigma),
-                                        3 if r > 9 else 10),
-                       library_ms=lib_ms, library_max_abs_err=lib_err,
-                       bound_ms=bms, bound_by=by)
+            rec.update(blur_times(torch, lambda: G.gauss_blur(img, sigma),
+                                  lambda: G.gauss_blur_reference(img, sigma),
+                                  blur_library(torch, img, taps, hwc=True), ref, r, 50))
             product = product or rec
         emit(card, **rec)
+    # the planar entry at 6 MP: sigma 10 (R 30, beside K1's), 11 (R 33,
+    # RL's separable_k3 route) and 21.3 (R 64)
+    planes = torch.rand(3, 2000, 3000, generator=gen).to("cuda")
+    for sigma in (10.0, 11.0, 21.3):
+        taps = gaussian_taps_np(sigma)
+        r = (len(taps) - 1) // 2
+        tt = torch.from_numpy(taps).to("cuda")
+        out = torch.empty_like(planes)
+        ref = rl_fused.blur(planes, taps.tolist())
+        err, tol = blur_vs_plain(torch, G.blur_planes(planes, tt, out=out), ref,
+                                 f"blur_planes radius {r}")
+        emit(card, phase="blur_planes", shape=[3, 2000, 3000], sigma=sigma, radius=r,
+             max_abs_err=err, tol=tol,
+             **blur_times(torch, lambda: G.blur_planes(planes, tt, out=out),
+                          lambda: rl_fused.blur(planes, taps.tolist()),
+                          blur_library(torch, planes, taps), ref, r, 20))
+    gauss_blur_radius_sweep(torch, card)
     try:
         G.gauss_blur(img, 22.0)
     except ValueError as e:

@@ -12,11 +12,18 @@ same kernel over planar fp32 (P, H, W) with the taps given as a tensor
 (``rl_fused.blur`` on the CPU): ``ops/rl_deblur`` calls it on its
 ``"separable_k3"`` route (32 < R <= 64). ``launches`` counts kernel
 launches of both.
+
+The kernel has an instance per radius (a table of launchers in the C
+entry), register-blocked passes, one CTA for all channels of a 64 x 32
+tile (128 x 32 above R 16), and stays bit-equal to the plain version; its
+source note says what bounds it. ``tools/gauss_blur_breakdown.py`` times
+it on the card beside variants and an earlier tree's kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -42,6 +49,13 @@ def _taps(sigma: float) -> np.ndarray:
     return taps
 
 
+@functools.lru_cache(maxsize=64)
+def _device_taps(sigma: float, device: torch.device) -> torch.Tensor:
+    """The taps on ``device``, copied once per sigma: a copy from pageable
+    memory would hold the host at every call."""
+    return torch.from_numpy(_taps(sigma)).to(device)
+
+
 def gauss_blur_reference(img_hwc: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version: the same two passes in the same tap order."""
     taps = _taps(sigma).tolist()
@@ -62,7 +76,7 @@ def gauss_blur(img_hwc: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
                          f"{img_hwc.dtype} {tuple(img_hwc.shape)}")
     h, w, c = img_hwc.shape
     out = torch.empty_like(img_hwc)
-    tt = torch.from_numpy(taps).to(img_hwc.device)
+    tt = _device_taps(float(sigma), img_hwc.device)
     lib = _build.library("gauss_blur", _SIG)
     err = lib.gauss_blur_launch(img_hwc.data_ptr(), out.data_ptr(), tt.data_ptr(),
                                 h, w, c, (len(taps) - 1) // 2,

@@ -49,3 +49,42 @@ def test_gauss_blur_radius_limit():
 def test_gauss_taps_equal_jax(sigma):
     np.testing.assert_array_equal(trl.gaussian_taps_np(sigma),
                                   jrl.gaussian_taps_np(sigma))
+
+
+# K3's geometry changes at these radii (csrc/gauss_blur.cu): 64-wide tiles
+# to R 16, 128-wide above; two CTAs an SM to R 38, one above; RL's routes
+# part at R 32/33; R 64 is the last instance. The shapes are ragged,
+# smaller than a tile, and most of them smaller than R in one dimension.
+SWITCHES = [(8, (7, 61)), (9, (5, 63)), (16, (15, 30)), (17, (11, 70)),
+            (32, (31, 45)), (33, (20, 129)), (38, (9, 50)), (39, (37, 21)),
+            (63, (40, 62)), (64, (63, 131))]
+
+
+def _sigma(radius):
+    return (radius - 0.5) / 3  # ceil(3 sigma) = radius
+
+
+@pytest.mark.parametrize("radius,hw", SWITCHES[:6])  # the lax blur is slow to build above
+def test_gauss_blur_matches_lax_blur_at_tile_switches(radius, hw):
+    sigma = _sigma(radius)
+    assert jrl.psf_radius(sigma) == radius
+    img = _img(hw, radius)
+    ref = np.asarray(jrl._blur(jnp.asarray(img)[None], jrl.gaussian_psf_1d(sigma)))[0]
+    got = tgb.gauss_blur(torch.from_numpy(img), sigma).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("radius,hw", SWITCHES)
+def test_gauss_blur_matches_pallas_interpret_at_tile_switches(radius, hw):
+    sigma = _sigma(radius)
+    img = _img(hw, radius + 100)
+    ref = np.asarray(pallas_blur.gauss_blur_pallas(jnp.asarray(img), sigma=sigma,
+                                                   band_h=16, interpret=True))
+    got = tgb.gauss_blur(torch.from_numpy(img), sigma).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+def test_device_taps_are_copied_once_per_sigma():
+    first = tgb._device_taps(1.0, torch.device("cpu"))
+    assert tgb._device_taps(1.0, torch.device("cpu")) is first
+    np.testing.assert_array_equal(first.numpy(), trl.gaussian_taps_np(1.0))

@@ -2,7 +2,9 @@
 against the JAX package on the CPU: ``route_for`` at the limits of K1
 (R 32) and K3 (R 64), ``psf_radius`` where sigma crosses them, each route's
 ``rl_deblur`` against ``rl_deblur(impl='xla')``, K3's planar entry
-``blur_planes`` against its HWC plain version, and the route counter."""
+``blur_planes`` against its HWC plain version and, at the radii where
+K3's geometry changes, against the JAX package's blurs, the route counter,
+and the breakdown tools' source handling."""
 
 import numpy as np
 import pytest
@@ -10,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
+from nind_denoise_tpu.ops import pallas_blur
 from nind_denoise_tpu.ops import rl_deblur as jrl
 from nind_denoise_tpu_torch.ops import gauss_blur as tgb
 from nind_denoise_tpu_torch.ops import rl_deblur as trl
@@ -102,3 +105,49 @@ def test_rl_iter_breakdown_variants_apply_to_the_kernel():
         assert (out == src) == (name == "shipped")
     with pytest.raises(RuntimeError, match="no longer has"):
         B.variant_source(src, B.PARENT["parent"])
+
+
+# the radii where K3's geometry changes (tests/test_torch_gauss_blur.py),
+# on ragged planes smaller than a tile and, in one dimension, than R
+PLANE_SWITCHES = [(8, (2, 61, 7)), (9, (3, 5, 40)), (16, (2, 30, 15)), (17, (1, 70, 11)),
+                  (32, (2, 45, 31)), (33, (3, 40, 129)), (38, (2, 50, 9)),
+                  (39, (1, 21, 37)), (63, (2, 62, 40)), (64, (2, 131, 63))]
+
+
+@pytest.mark.parametrize("radius,shape", PLANE_SWITCHES[:6])  # the lax blur is slow to build above
+def test_blur_planes_matches_lax_blur_at_tile_switches(radius, shape):
+    sigma = (radius - 0.5) / 3
+    x = _img(shape, radius)
+    taps = trl.gaussian_taps_np(sigma)
+    ref = np.asarray(jrl._blur(jnp.asarray(x.transpose(1, 2, 0))[None],
+                               jrl.gaussian_psf_1d(sigma)))[0].transpose(2, 0, 1)
+    got = tgb.blur_planes(torch.from_numpy(x), torch.from_numpy(taps)).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-6)  # tests/test_pallas_blur.py's bar
+
+
+@pytest.mark.parametrize("radius,shape", PLANE_SWITCHES)
+def test_blur_planes_matches_pallas_interpret_at_tile_switches(radius, shape):
+    sigma = (radius - 0.5) / 3
+    x = _img(shape, radius + 50)
+    taps = trl.gaussian_taps_np(sigma)
+    assert len(taps) == 2 * radius + 1
+    ref = np.asarray(pallas_blur.gauss_blur_pallas(jnp.asarray(x.transpose(1, 2, 0)),
+                                                   sigma=sigma, band_h=16, interpret=True))
+    got = tgb.blur_planes(torch.from_numpy(x), torch.from_numpy(taps)).numpy()
+    np.testing.assert_allclose(got, ref.transpose(2, 0, 1), atol=2e-6)
+
+
+def test_gauss_blur_breakdown_sources_apply_to_the_kernel():
+    # gauss_blur_breakdown's substitutions must keep matching csrc/gauss_blur.cu,
+    # and a parent source must have the C entries the wrappers call
+    from nind_denoise_tpu_torch.ops import _build
+    from nind_denoise_tpu_torch.tools import gauss_blur_breakdown as B
+
+    src = (_build.CSRC / "gauss_blur.cu").read_text()
+    for name, subs in B.VARIANTS.items():
+        out = B.variant_source(src, subs)
+        assert (out == src) == (name == "shipped")
+    assert B.parent_source(src) == src
+    with pytest.raises(RuntimeError, match="lacks"):
+        B.parent_source(src.replace("int gauss_blur_planes_launch(", "int blur_planes("))
+    assert set(B.REGISTER_RADII) <= set(range(1, 65))
