@@ -49,11 +49,29 @@ limit as nvidia-smi reports them):
    must give every slot the tile's own bits and cuDNN is reported slot by
    slot.
 
+8. cli_plugin: the darktable plugin's own command line (its Lua template
+   filled, no model flag) in a working directory that holds a seeded
+   funit-64 ``models/nind/generator_650.pt``, on a 6 MP 16-bit TIFF at
+   sigma 1 and 10; each pre-encode uint8 within 1 LSB of a
+   ``--model_path`` run; the warm ``-v`` stage split, and the checkpoint
+   load built on the meta device beside an eager build + load;
+9. cli_raw: a RAW file and its XMP sidecar through the darktable stand-in
+   (``tools/fixtures.py``: stage 1 a seeded 6 MP float32 TIFF, stage 2 the
+   denoised image as 16-bit), the darktable command lines held to the
+   argv contract, the stage split with develop and stage2;
+10. cli_dir: a directory of four 6 MP TIFFs: one checkpoint load and one
+   engine, each output within 1 LSB of that file's own run, the wall of
+   each image and the first image's load;
+11. whole_image: ``denoise_image --whole_image --pad 8`` on a 6 MP 16-bit
+   TIFF in bf16: wall, peak device memory, and K2 at its whole-image input
+   against its plain version (4 bf16 ulps), timed beside its bound, its
+   plain version and cuDNN's level 1.
+
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
 a missing GPU or a failed build exits non-zero without that last line.
 Times are warm, from CUDA events. Launch counts are read around the runs
-of the product paths (the CLI and the server) only, with every count set
+of the product paths (the CLIs and the server) only, with every count set
 to 0 just before each run.
 """
 
@@ -62,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -72,6 +91,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# the product CLIs' phases (cli_plugin, cli_raw, cli_dir, whole_image): a
+# 6 MP image through UtNet at the product width
+HW, FUNIT = (2000, 3000), 64
+STAGE = re.compile(r"([\w+]+): ([0-9.]+)s/(\d+)x")  # one stage of a -v split
 
 
 def fail(msg: str) -> None:
@@ -114,46 +138,6 @@ def time_ms(torch, fn, reps: int) -> float:
 def bound_ms(nbytes: float, flops: float, dtype: str):
     b, o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(b, o), ("bytes" if b >= o else "operations")
-
-
-def write_jax_checkpoint(path: str, funit: int, seed: int) -> None:
-    """A funit-``funit`` UtNet in the JAX package's .npz params format
-    (HWIO kernels, (I, 4*O) up-conv matrices, scalar PReLU ``a``), with
-    torch-default-style uniform(+-1/sqrt(fan_in)) weights from a seed."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    arrays = {}
-
-    def layer(key, shape, fan_in, cout, act=True):
-        bound = 1.0 / math.sqrt(fan_in)
-        arrays[f"{key}/w"] = rng.uniform(-bound, bound, shape).astype(np.float32)
-        arrays[f"{key}/b"] = rng.uniform(-bound, bound, (cout,)).astype(np.float32)
-        if act:
-            arrays[f"{key}/a"] = np.asarray(0.25, np.float32)
-
-    def conv(key, cin, cout, k=3, act=True):
-        layer(key, (k, k, cin, cout), cin * k * k, cout, act)
-
-    def tconv(key, cin, cout):
-        layer(key, (3, 3, cin, cout), cout * 9, cout)
-
-    f = funit
-    for i, (cin, c) in enumerate([(3, f), (f, 2 * f), (2 * f, 4 * f), (4 * f, 8 * f)], 1):
-        conv(f"convs{i}/c0", cin, c)
-        conv(f"convs{i}/c1", c, c)
-    conv("bottom/c0", 8 * f, 16 * f)
-    tconv("bottom/c1", 16 * f, 16 * f)
-    for i, (cin, c) in enumerate([(16 * f, 8 * f), (8 * f, 4 * f), (4 * f, 2 * f)], 1):
-        layer(f"up{i}", (cin, 4 * c), c * 4, c, act=False)
-        tconv(f"tconvs{i}/c0", cin, c)
-        tconv(f"tconvs{i}/c1", c, c)
-    layer("up4", (2 * f, 4 * f), f * 4, f, act=False)
-    tconv("tconvs4/c0", 2 * f, f)
-    tconv("tconvs4/c1", f, f)
-    conv("tconvs4/c2", f, 3, k=1, act=False)
-    meta = np.frombuffer(json.dumps({}).encode(), dtype=np.uint8)
-    np.savez(path, __pytree_meta__=meta, **arrays)
 
 
 def enc1_vs_plain(torch, E, args):
@@ -213,6 +197,38 @@ def enc1_library(torch, args):
     return run
 
 
+def enc1_record(torch, E, args, reps):
+    """K2 on ``args`` against its plain version (failing above the limit),
+    with its warm time, the plain version's, cuDNN's level 1 (the library
+    yardstick) and the bound."""
+    x = args[0]
+    bsz, _, hp, wp = x.shape
+    h, w = hp - 4, wp - 4
+    dtype = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    err, tol = enc1_vs_plain(torch, E, args)
+    check(err <= tol, f"enc1 {dtype} {bsz}x{h}x{w}: max err {err} > {tol}")
+    # the plain version is timed as it was checked: without TF32
+    torch.backends.cudnn.allow_tf32 = False
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (x.numel() + 64 * 27 + 64 * 576 + 130
+                     + bsz * 64 * (h * w + (h // 2) * (w // 2)))
+    flops = 2.0 * bsz * h * w * 64 * 576 + 2.0 * bsz * (h + 2) * (w + 2) * 64 * 27
+    bms, by = bound_ms(nbytes, flops, dtype)
+    ms = time_ms(torch, lambda: E.enc1(*args), reps)
+    plain = time_ms(torch, lambda: E.enc1_reference(*args), reps)
+    # the library yardstick, fp32 without TF32 like the plain version
+    library = enc1_library(torch, args)
+    y1, y2 = library()
+    r1, r2 = E.enc1_reference(*args)
+    lib_err = max((y1.float() - r1.float()).abs().max().item(),
+                  (y2.float() - r2.float()).abs().max().item())
+    lib_ms = time_ms(torch, library, reps)
+    torch.backends.cudnn.allow_tf32 = True
+    return dict(dtype=dtype, shape=[bsz, h, w], max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain, library_ms=lib_ms, library_max_abs_err=lib_err,
+                bound_ms=bms, bound_by=by)
+
+
 def phase_enc1(torch, card):
     from nind_denoise_tpu_torch.ops import enc1 as E
 
@@ -233,31 +249,9 @@ def phase_enc1(torch, card):
                     torch.full((1,), 0.25, device="cuda", dtype=dt),
                     u(64, 64, 3, 3, fan_in=576), u(64, fan_in=576),
                     torch.full((1,), 0.25, device="cuda", dtype=dt))
-            err, tol = enc1_vs_plain(torch, E, args)
-            check(err <= tol, f"enc1 {dtype} {bsz}x{h}x{w}: max err {err} > {tol}")
-            # the plain version is timed as it was checked: without TF32
-            torch.backends.cudnn.allow_tf32 = False
-            item = 2 if dt == torch.bfloat16 else 4
-            nbytes = item * (x.numel() + 64 * 27 + 64 * 576 + 130
-                             + bsz * 64 * (h * w + (h // 2) * (w // 2)))
-            flops = 2.0 * bsz * h * w * 64 * 576 + 2.0 * bsz * (h + 2) * (w + 2) * 64 * 27
-            bms, by = bound_ms(nbytes, flops, dtype)
-            reps = 10 if h == 504 else 50
-            ms = time_ms(torch, lambda: E.enc1(*args), reps)
-            plain = time_ms(torch, lambda: E.enc1_reference(*args), reps)
-            # the library yardstick, fp32 without TF32 like the plain version
-            library = enc1_library(torch, args)
-            y1, y2 = library()
-            r1, r2 = E.enc1_reference(*args)
-            lib_err = max((y1.float() - r1.float()).abs().max().item(),
-                          (y2.float() - r2.float()).abs().max().item())
-            lib_ms = time_ms(torch, library, reps)
-            rec = dict(phase="enc1", dtype=dtype, shape=[bsz, h, w], max_abs_err=err,
-                       tol=tol, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                       library_max_abs_err=lib_err, bound_ms=bms, bound_by=by)
+            rec = dict(phase="enc1", **enc1_record(torch, E, args, 10 if h == 504 else 50))
             emit(card, **rec)
             out[(dtype, h, w)] = rec
-    torch.backends.cudnn.allow_tf32 = True
     return out[("bfloat16", 504, 504)]
 
 
@@ -509,13 +503,14 @@ def phase_end_to_end(torch, card, tmp):
     from nind_denoise_tpu_torch.ops import gauss_blur as G
     from nind_denoise_tpu_torch.ops import rl_fused as R
     from nind_denoise_tpu_torch.pipeline import denoise_cli
+    from nind_denoise_tpu_torch.tools import fixtures
 
     rng = np.random.default_rng(3)
     tif = os.path.join(tmp, "img.tif")
     check(cv2.imwrite(tif, rng.integers(0, 65536, (2000, 3000, 3)).astype(np.uint16)),
           "could not write the TIFF")
     ckpt = os.path.join(tmp, "generator_1.npz")
-    write_jax_checkpoint(ckpt, 64, seed=4)
+    fixtures.write_jax_checkpoint(ckpt, 64, seed=4)
     outdir = os.path.join(tmp, "out")
     os.makedirs(outdir)
     argv = [tif, "--tiff-input", "--model_path", ckpt, "-o", outdir,
@@ -559,23 +554,11 @@ def phase_end_to_end(torch, card, tmp):
     # small image, fp32 without TF32: the card against the CPU
     small = os.path.join(tmp, "small.tif")
     cv2.imwrite(small, rng.integers(0, 65536, (150, 170, 3)).astype(np.uint16))
-    seen = []
-    encode = denoise_cli._encode_u8
-
-    def spy(u8, path, quality):
-        seen.append(np.array(u8))
-        encode(u8, path, quality)
-
-    denoise_cli._encode_u8 = spy
-    try:
-        for dev in ("cuda", "cpu"):
-            denoise_cli.main([small, "--tiff-input", "--model_path", ckpt,
-                              "-o", outdir, "--compute_dtype", "float32",
-                              "--precision", "float32", "--cs", "104", "--ucs", "88",
-                              "--device", dev])
-    finally:
-        denoise_cli._encode_u8 = encode
-    diff = int(np.abs(seen[0].astype(int) - seen[1].astype(int)).max())
+    seen = [cli_run(denoise_cli, [small, "--tiff-input", "--model_path", ckpt,
+                                  "-o", outdir, "--compute_dtype", "float32",
+                                  "--precision", "float32", "--cs", "104", "--ucs", "88",
+                                  "--device", dev])[1][0] for dev in ("cuda", "cpu")]
+    diff = max_lsb(*seen)
     check(diff <= 1, f"small image: card and CPU differ by {diff} LSB")
     emit(card, phase="end_to_end_small", shape=[150, 170, 3], compute_dtype="float32",
          max_lsb_diff_cuda_vs_cpu=diff)
@@ -616,10 +599,11 @@ def phase_serve(torch, card, tmp, kernel_mods):
 
     from nind_denoise_tpu_torch.ops import rl_deblur as RL
     from nind_denoise_tpu_torch.pipeline import serve as S
+    from nind_denoise_tpu_torch.tools import fixtures
 
     ckpt1 = os.path.join(tmp, "generator_1.npz")  # phase_end_to_end's weights
     ckpt2 = os.path.join(tmp, "generator_2.npz")
-    write_jax_checkpoint(ckpt2, 64, seed=7)
+    fixtures.write_jax_checkpoint(ckpt2, 64, seed=7)
     svc = S.DenoiseService("UtNet", ckpt1, cs=504, ucs=480, batch_size=8,
                            compute_dtype="bfloat16")
     httpd = S.serve(svc, "127.0.0.1", 0)
@@ -637,11 +621,7 @@ def phase_serve(torch, card, tmp, kernel_mods):
     def drive(fn):
         """Run HTTP traffic with every kernel count set to 0 just before
         and read just after; returns (result, counts of this window)."""
-        for m in kernel_mods.values():
-            m.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        seen = {name: m.launches for name, m in kernel_mods.items()}
+        out, seen = counted(torch, kernel_mods, fn)
         for name in total:
             total[name] += seen[name]
         return out, seen
@@ -910,6 +890,282 @@ def phase_serve_kernels(torch, card, inputs, model):
          cudnn_conv=by_slot(c_8, c_1), forward=by_slot(f_8, f_1))
 
 
+def counted(torch, kernel_mods, fn):
+    """Run ``fn`` with every kernel count set to 0 just before; returns
+    (its result, the counts read just after)."""
+    for m in kernel_mods.values():
+        m.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: m.launches for name, m in kernel_mods.items()}
+
+
+def cli_run(cli, argv):
+    """``cli.main(argv)`` with its standard output captured: (its result,
+    the uint8 images it handed its encoder, its ``-v`` stage splits). The
+    captured output goes to stderr when the run raises."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    seen = []
+    encode = getattr(cli, "_encode_u8", None)
+    if encode is not None:
+        cli._encode_u8 = lambda u8, path, q: seen.append(np.array(u8)) or encode(u8, path, q)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = cli.main(argv)
+    except BaseException:
+        print(buf.getvalue()[-6000:], file=sys.stderr)
+        raise
+    finally:
+        if encode is not None:
+            cli._encode_u8 = encode
+    stages = [{k: float(v) for k, v, _ in STAGE.findall(line)}
+              for line in buf.getvalue().splitlines() if line.startswith("stages: ")]
+    return out, seen, stages
+
+
+def cli_batches(h: int, w: int) -> int:
+    """K2 launches (tile batches) of one h x w image through the CLIs'
+    default tiling (cs 504 / ucs 480, adapted to small images; batch 8)."""
+    from nind_denoise_tpu_torch.core.tiles import TilePlan, adapt_cs_ucs
+    from nind_denoise_tpu_torch.models.utnet import check_cs
+
+    plan = TilePlan(h, w, *adapt_cs_ucs(h, w, 504, 480, check=check_cs))
+    return (plan.ipervl + 1) * math.ceil((plan.iperhl + 1) / 8)
+
+
+def max_lsb(a, b) -> int:
+    check(a.shape == b.shape, f"shapes differ: {a.shape} vs {b.shape}")
+    return int(abs(a.astype(int) - b.astype(int)).max())
+
+
+def phase_cli_plugin(torch, card, tmp, kernel_mods, tif):
+    """The darktable plugin's command line, from its Lua template, with no
+    model flag: the checkpoint is the model table's default path under the
+    working directory. Returns the launch counts of the plugin's runs."""
+    import cv2
+
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.models.utnet import UtNet
+    from nind_denoise_tpu_torch.pipeline import denoise_cli
+    from nind_denoise_tpu_torch.tools import fixtures
+
+    cwd = os.path.join(tmp, "plugin")
+    ckpt = os.path.join(cwd, "models", "nind", "generator_650.pt")
+    os.makedirs(os.path.dirname(ckpt))
+    fixtures.write_torch_checkpoint(ckpt, FUNIT, seed=14)
+    work = os.path.join(cwd, "ndtpu_out") + os.sep
+    ref_dir = os.path.join(cwd, "model_path_runs")
+    os.makedirs(work)
+    os.makedirs(ref_dir)
+    total = {name: 0 for name in kernel_mods}
+    cases = []
+    old_cwd = os.getcwd()
+    os.chdir(cwd)
+    try:
+        for sigma in (1, 10):  # 10: R 30, K1's top and the plugin's maximum
+            argv = fixtures.plugin_command("nind-denoise", tif, work, sigma=sigma)
+            check(not any(a.startswith("--model") for a in argv), f"model flag in {argv}")
+            t0 = time.time()
+            (out, seen, _), launches = counted(torch, kernel_mods,
+                                               lambda: cli_run(denoise_cli, argv[1:]))
+            wall = time.time() - t0
+            check(launches["enc1"] == cli_batches(*HW) and launches["rl_iter"] == 10
+                  and launches["gauss_blur"] == 0, f"plugin sigma {sigma}: {launches}")
+            for k in total:
+                total[k] += launches[k]
+            jpg = cv2.imread(str(out))
+            check(str(out).startswith(work) and jpg is not None
+                  and jpg.shape == (*HW, 3), f"plugin sigma {sigma}: bad output {out}")
+            _, ref, _ = cli_run(denoise_cli, [tif, "--tiff-input", "-o", ref_dir, "-q", "97",
+                                              "--sigma", str(sigma), "--model_path", ckpt])
+            diff = max_lsb(seen[0], ref[0])
+            check(diff <= 1, f"plugin sigma {sigma}: {diff} LSB off the --model_path run")
+            cases.append(dict(sigma=sigma, argv=argv, launches=launches, wall_s=wall,
+                              output=os.path.basename(str(out)), jpeg_shape=list(jpg.shape),
+                              max_lsb_vs_model_path=diff))
+        # the warm stage split of the same command line under -v
+        argv = fixtures.plugin_command("nind-denoise", tif, work, sigma=1)
+        _, _, stages = cli_run(denoise_cli, argv[1:] + ["-v"])
+    finally:
+        os.chdir(old_cwd)
+
+    # the checkpoint load as the port does it (built on the meta device,
+    # tensors assigned) beside an eager build + load of the same file
+    def eager():
+        model = UtNet(FUNIT)
+        model.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True))
+        return model
+
+    def best_of(fn, n=3):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    emit(card, phase="cli_plugin", shape=[*HW, 3], compute_dtype="bfloat16",
+         template=fixtures.plugin_template(), cases=cases, stages_s=stages[0],
+         load_s={"meta_device": best_of(lambda: params_io.load_generator(ckpt)),
+                 "eager": best_of(eager)})
+    return total
+
+
+def phase_cli_raw(torch, card, tmp, kernel_mods, ckpt):
+    """A RAW file and its sidecar through the darktable stand-in. Returns
+    the launch counts of the warm run."""
+    import cv2
+
+    from nind_denoise_tpu_torch.pipeline import denoise_cli
+    from nind_denoise_tpu_torch.tools import fixtures
+
+    d = os.path.join(tmp, "raw")
+    os.makedirs(d)
+    tools = os.path.join(ROOT, "build", "chip_smoke_tools")  # exec-able, in the checkout
+    os.makedirs(tools, exist_ok=True)
+    log = os.path.join(d, "tools.jsonl")
+    dt = fixtures.write_darktable(os.path.join(tools, "darktable-cli"), log, *HW, seed=15)
+    raw = os.path.join(d, "img.nef")
+    with open(raw, "wb") as f:
+        f.write(b"stand-in RAW: the darktable stand-in develops a seeded image")
+    with open(raw + ".xmp", "w") as f:
+        f.write(fixtures.SIDECAR)
+    argv = [raw, "--dt", dt, "--model_path", ckpt, "-o", d, "-v"]
+    cli_run(denoise_cli, argv)  # cold: the RAW path's own engine
+    t0 = time.time()
+    (out, seen, stages), launches = counted(torch, kernel_mods,
+                                            lambda: cli_run(denoise_cli, argv))
+    wall = time.time() - t0
+    check(launches["enc1"] == cli_batches(*HW) and launches["rl_iter"] == 10,
+          f"cli_raw: {launches}")
+    jpg = cv2.imread(str(out))
+    check(jpg is not None and jpg.shape == (*HW, 3) and seen[0].shape == jpg.shape,
+          f"cli_raw: bad output {out}")
+    calls = fixtures.read_log(log)
+    check(len(calls) == 4, f"cli_raw: {len(calls)} darktable calls, expected 2 a run")
+    s1, s2 = calls[2]["argv"], calls[3]["argv"]
+    contract = (s1[0] == raw and s1[1].endswith("img.nef.s1.xmp") and s1[2] == "img_1_s1.tif"
+                and "plugins/imageio/format/tiff/bpp=32" in s1
+                and "plugins/imageio/format/tiff/compress=0" in s1
+                and s2[0].endswith("img_1_s1_denoised.tiff") and s2[1].endswith("img.nef.s2.xmp")
+                and s2[2] == "img_1_s2.tif" and "plugins/imageio/format/tiff/bpp=16" in s2
+                and s2[s2.index("--height") + 1] == "0")
+    check(contract, f"cli_raw: darktable argv off the contract: {s1} {s2}")
+    emit(card, phase="cli_raw", standin="darktable-cli stand-in, tools/fixtures.py",
+         shape=[*HW, 3], compute_dtype="bfloat16", wall_s=wall, launches=launches,
+         stages_s=stages[0], darktable_argv=[s1, s2], output=os.path.basename(str(out)))
+    return launches
+
+
+def phase_cli_dir(torch, card, tmp, kernel_mods, ckpt):
+    """A directory of four 6 MP TIFFs: one checkpoint load, one engine, and
+    each output within 1 LSB of that file's own run. Returns the launch
+    counts of the directory run."""
+    import cv2
+    import numpy as np
+
+    from nind_denoise_tpu_torch.engine import tile_engine
+    from nind_denoise_tpu_torch.pipeline import denoise_cli
+
+    src, out_dir = os.path.join(tmp, "dir_in"), os.path.join(tmp, "dir_out")
+    os.makedirs(src)
+    os.makedirs(out_dir)
+    rng = np.random.default_rng(16)
+    files = []
+    for i in range(4):
+        files.append(os.path.join(src, f"f{i}.tif"))
+        check(cv2.imwrite(files[-1], rng.integers(0, 65536, (*HW, 3)).astype(np.uint16)),
+              "could not write the TIFF")
+    loads, engines, walls = [], [], []
+    load, engine_cls, one_file = (denoise_cli.params_io.load_generator,
+                                  tile_engine.TileEngine, denoise_cli.denoise_file)
+
+    class Counted(engine_cls):
+        def __init__(self, *a, **kw):
+            engines.append(a[1:3])
+            super().__init__(*a, **kw)
+
+    def timed(*a, **kw):
+        t0 = time.time()
+        try:
+            return one_file(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+
+    denoise_cli.params_io.load_generator = lambda *a, **kw: loads.append(a) or load(*a, **kw)
+    tile_engine.TileEngine = Counted
+    denoise_cli.denoise_file = timed
+    try:
+        (outs, batch, stages), launches = counted(
+            torch, kernel_mods, lambda: cli_run(denoise_cli, [
+                src, "--tiff-input", "--model_path", ckpt, "-o", out_dir, "-v"]))
+    finally:
+        denoise_cli.params_io.load_generator = load
+        tile_engine.TileEngine = engine_cls
+        denoise_cli.denoise_file = one_file
+    check(len(loads) == 1 and len(engines) == 1,
+          f"cli_dir: {len(loads)} checkpoint loads and {len(engines)} engines")
+    check(launches["enc1"] == 4 * cli_batches(*HW) and launches["rl_iter"] == 40,
+          f"cli_dir: {launches}")
+    check([os.path.basename(str(o)) for o in outs] == [f"f{i}.jpg" for i in range(4)],
+          f"cli_dir: outputs {outs}")
+    diffs = []
+    for i, f in enumerate(files):
+        single = os.path.join(tmp, f"single{i}")
+        os.makedirs(single)
+        _, one, _ = cli_run(denoise_cli, [f, "--tiff-input", "--model_path", ckpt,
+                                          "-o", single])
+        diffs.append(max_lsb(batch[i], one[0]))
+    check(max(diffs) <= 1, f"cli_dir: outputs off their single runs by {diffs} LSB")
+    emit(card, phase="cli_dir", files=4, shape=[*HW, 3], compute_dtype="bfloat16",
+         checkpoint_loads=len(loads), engines=len(engines), launches=launches,
+         image_wall_s=walls, load_s=[st.get("load", 0.0) for st in stages],
+         stages_s=stages, max_lsb_vs_single_runs=max(diffs))
+    return launches
+
+
+def phase_whole_image(torch, card, tmp, kernel_mods, ckpt, tif):
+    """``denoise_image --whole_image --pad 8`` on the 6 MP TIFF in bf16,
+    then K2 at the input that run gave it. Returns the run's counts."""
+    import cv2
+    import numpy as np
+
+    from nind_denoise_tpu_torch.ops import enc1 as E
+    from nind_denoise_tpu_torch.pipeline import denoise_image_cli
+
+    out = os.path.join(tmp, "whole.tif")
+    argv = ["-i", tif, "-o", out, "--network", "UtNet", "--model_path", ckpt,
+            "--whole_image", "--pad", "8", "--exif_method", "noexif"]
+    cli_run(denoise_image_cli, argv)  # cold: cuDNN picks its algorithms
+    rec = record_inputs(E, "enc1", lambda x, *w: (tuple(x.shape), str(x.dtype)))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        _, launches = counted(torch, kernel_mods, lambda: cli_run(denoise_image_cli, argv))
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        rec["restore"]()
+    check(launches["enc1"] == 1 and launches["rl_iter"] == 0, f"whole_image: {launches}")
+    img = cv2.imread(out, cv2.IMREAD_UNCHANGED)
+    check(img is not None and img.shape == (*HW, 3) and img.dtype == np.uint16,
+          "whole_image: bad output")
+    (key, args), = rec["seen"].items()
+    with torch.inference_mode():
+        k2 = enc1_record(torch, E, args, 10)
+    emit(card, phase="whole_image", shape=[*HW, 3], pad=8, compute_dtype="bfloat16",
+         wall_s=wall, peak_memory_allocated_bytes=peak, peak_memory_allocated_gib=peak / 2 ** 30,
+         launches=launches, enc1_input=list(key[0]), enc1=k2)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -935,6 +1191,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         by_path = {"denoise_cli": phase_end_to_end(torch, card, tmp)}
         by_path["serve"], serve_inputs, model = phase_serve(torch, card, tmp, kernel_mods)
+        # phase_end_to_end's 6 MP TIFF and checkpoint
+        tif, ckpt = os.path.join(tmp, "img.tif"), os.path.join(tmp, "generator_1.npz")
+        by_path["cli_plugin"] = phase_cli_plugin(torch, card, tmp, kernel_mods, tif)
+        by_path["cli_raw"] = phase_cli_raw(torch, card, tmp, kernel_mods, ckpt)
+        by_path["cli_dir"] = phase_cli_dir(torch, card, tmp, kernel_mods, ckpt)
+        by_path["whole_image"] = phase_whole_image(torch, card, tmp, kernel_mods, ckpt, tif)
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

@@ -8,7 +8,7 @@ A copy of ``load_img``, ``load_img_raw`` and ``save_img`` from
 * ``load_img_raw``: HWC in the storage dtype plus the scale to [0, 1]; the
   engine normalizes on the device.
 * ``save_img``: bit depth by extension — .jpg 8-bit, .png/.tif 16-bit,
-  .tiff float32 with no clipping.
+  .tiff float32 with no clipping (written by OpenCV, not imageio).
 """
 
 from __future__ import annotations
@@ -78,8 +78,10 @@ def save_img(img_chw: np.ndarray, path: str) -> None:
         arr = (np.clip(img_chw, 0, 1) * 65535).round().astype(np.uint16).transpose(1, 2, 0)
         _checked_imwrite(path, cv2.cvtColor(arr, cv2.COLOR_RGB2BGR))
     elif ext == ".tiff":
-        import imageio.v2 as imageio
-
-        imageio.imwrite(path, img_chw.transpose(1, 2, 0))
+        # OpenCV writes float32 TIFFs itself; imageio (the JAX package's
+        # writer) need not be installed where the port runs. Both read back
+        # bit for bit through load_img.
+        _checked_imwrite(path, cv2.cvtColor(np.ascontiguousarray(
+            img_chw.transpose(1, 2, 0)), cv2.COLOR_RGB2BGR))
     else:
         raise NotImplementedError(f"imgio.save_img: extension of {path}")

@@ -3,8 +3,9 @@
 A copy of the part of ``nind_denoise_tpu/core/tiles.py`` that the tiled
 engine needs: the grid (``TilePlan``), the six-int feather descriptors
 (``tile_specs_arrays``), per-architecture tile defaults, small-image tile
-adaptation (``adapt_cs_ucs``) and the pad-to-valid helpers of the
-tiny-image path. The host gather/stitch helpers of the original are left
+adaptation (``adapt_cs_ucs``), the pad-to-valid helpers of the
+tiny-image path and the whole-image mode's side mirror
+(``whole_image_pad``). The host gather/stitch helpers of the original are left
 out: the port gathers and stitches on the device (engine/device_stitch.py).
 
 Grid math (reference denoise_image.py:100-104): tiles of ``cs`` on stride
@@ -184,3 +185,17 @@ def pad_to_size(img_hwc: np.ndarray, th: int, tw: int) -> np.ndarray:
         pw = min(tw - out.shape[1], out.shape[1])
         out = np.pad(out, ((0, ph), (0, pw), (0, 0)), mode="symmetric")
     return out
+
+
+def whole_image_pad(img_chw: np.ndarray, pad: int) -> np.ndarray:
+    """Whole-image mode padding (OneImageDS whole_image branch,
+    denoise_image.py:110-128): mirror the four sides, leave corners zero."""
+    c, h, w = img_chw.shape
+    ret = np.zeros((c, h + 2 * pad, w + 2 * pad), dtype=np.float32)
+    ret[:, pad:h + pad, pad:w + pad] = img_chw
+    if pad:
+        ret[:, pad:-pad, :pad] = np.flip(img_chw[:, :, :pad], axis=2)
+        ret[:, pad:-pad, w + pad:] = np.flip(img_chw[:, :, w - pad:], axis=2)
+        ret[:, :pad, pad:-pad] = np.flip(img_chw[:, :pad, :], axis=1)
+        ret[:, h + pad:, pad:-pad] = np.flip(img_chw[:, h - pad:, :], axis=1)
+    return ret

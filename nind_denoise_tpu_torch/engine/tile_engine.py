@@ -10,7 +10,9 @@ a tensor for on-device post-ops (the RL stage).
 
 ``denoise_many`` coalesces same-shape images into one tile stream (the
 serving daemon's continuous batching), and ``AdaptiveEngine`` adapts the
-tile size per request over one resolved model.
+tile size per request over one resolved model. ``denoise_whole`` runs the
+whole image as one forward (``--whole_image``), and ``debug_dir`` dumps
+every tile's input and output as JPEGs (``--debug``).
 
 What the JAX engine does only for the TPU is left out: the transfer
 threads and band streaming of engine/transfer.py (the whole image is
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import os
 from typing import Optional
 
 import numpy as np
@@ -95,7 +98,7 @@ class TileEngine:
                  ol: int = tiles_mod.DEFAULT_OVERLAP, batch_size: int = 4,
                  compute_dtype: str = "bfloat16", precision: str = "default",
                  max_subpixels: Optional[int] = None, size_check=None,
-                 device=None):
+                 device=None, debug_dir: Optional[str] = None):
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
         if precision not in ("default", "float32"):
@@ -111,6 +114,7 @@ class TileEngine:
         self.allow_tf32 = not (compute_dtype == "float32" and precision == "float32")
         self.max_subpixels = max_subpixels
         self.size_check = size_check
+        self.debug_dir = debug_dir  # dump noisy/denoised tiles per row (slow)
 
     def plan_for(self, height: int, width: int) -> TilePlan:
         return TilePlan(height, width, self.cs, self.ucs, self.ol)
@@ -141,12 +145,17 @@ class TileEngine:
         return (plan.ipervl * plan.stride + self.cs,
                 plan.iperhl * plan.stride + self.cs)
 
+    def _wire_dtype(self, raw: np.ndarray) -> np.ndarray:
+        """fp32 input in bf16 mode travels as fp16 (see the module doc)."""
+        if raw.dtype == np.float32 and self.compute_dtype == torch.bfloat16 \
+                and self.precision != "float32":
+            return raw.astype(np.float16)
+        return raw
+
     def _upload_padded(self, raws, plan: TilePlan) -> torch.Tensor:
         """N same-shape storage images -> their symmetric-padded extents on
         the device, stacked along rows: (N * PH, PW, C)."""
-        if raws[0].dtype == np.float32 and self.compute_dtype == torch.bfloat16 \
-                and self.precision != "float32":
-            raws = [r.astype(np.float16) for r in raws]
+        raws = [self._wire_dtype(r) for r in raws]
         h, w, c = raws[0].shape
         ph, pw = self._padded_hw(plan)
         dev = self.device
@@ -186,10 +195,37 @@ class TileEngine:
                                                      tiles_per_row))
                 coords, specs = plan.tile_specs_arrays(idxs)
                 self._run_batch(padded, canvas, coords, coords, specs, inv_scale)
+            if self.debug_dir:
+                self._dump_debug_tiles(raw_hwc, plan, r, scale)
             if progress:
                 print(f"{r}/{n_rows}")
         out = canvas[:h, :w]
         return out if out_dtype == "device" else _quantize(out, out_dtype)
+
+    def _dump_debug_tiles(self, raw_hwc, plan: TilePlan, r: int, scale: float) -> None:
+        """--debug (reference denoise_image.py:260-266): each tile of row
+        ``r``, its noisy input (the host band / scale) and its output of a
+        forward on that tile alone, as 8-bit JPEGs
+        ``crop{r}_{xi}_{noisy,denoised}.jpg`` in ``debug_dir``, truncated
+        to uint8 as the JAX engine writes them."""
+        import cv2
+
+        os.makedirs(self.debug_dir, exist_ok=True)
+        h, w = raw_hwc.shape[:2]
+        pw = self._padded_hw(plan)[1]
+        rows = _reflect_rows(r * plan.stride - plan.pad_top, self.cs, h)
+        cols = _reflect_rows(-plan.pad_left, pw, w)
+        band = self._wire_dtype(raw_hwc)[rows][:, cols].astype(np.float32) / scale
+        for xi in range(plan.iperhl + 1):
+            s = plan.spec(r * (plan.iperhl + 1) + xi)
+            tile = np.ascontiguousarray(band[:, s.abs_x0:s.abs_x0 + self.cs])
+            x = torch.from_numpy(tile).to(self.device, self.compute_dtype)
+            out = self.apply_fn(x.permute(2, 0, 1)[None])[0].permute(1, 2, 0)
+            for tag, arr in (("noisy", tile), ("denoised", out.float().cpu().numpy())):
+                u8 = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+                path = os.path.join(self.debug_dir, f"crop{r}_{xi}_{tag}.jpg")
+                if not cv2.imwrite(path, cv2.cvtColor(u8, cv2.COLOR_RGB2BGR)):
+                    raise IOError(f"TileEngine: could not write {path}")
 
     # -- cross-image coalescing (continuous batching) -------------------------
 
@@ -266,6 +302,28 @@ class TileEngine:
         out = self.denoise_hwc(np.ascontiguousarray(img_chw.transpose(1, 2, 0)),
                                progress=progress)
         return out.transpose(2, 0, 1)
+
+    def denoise_whole(self, img_chw: np.ndarray, pad: int = 0) -> np.ndarray:
+        """Whole-image mode (reference --whole_image --pad,
+        denoise_image.py:196-197): side-mirror padding by ``pad`` with zero
+        corners, then bottom/right mirror padding to the next size the
+        architecture takes (the reference crashes on other sizes), one
+        forward on the engine's device in its compute dtype, crop back.
+        (3, H, W) float32 in, (3, H, W) float32 out, unclipped."""
+        with self._scope():
+            padded = tiles_mod.whole_image_pad(img_chw, pad) if pad \
+                else img_chw.astype(np.float32)
+            hwc = padded.transpose(1, 2, 0)
+            h, w = hwc.shape[:2]
+            th = tiles_mod.next_valid_dim(h, self.size_check)
+            tw = tiles_mod.next_valid_dim(w, self.size_check)
+            if (th, tw) != (h, w):
+                hwc = tiles_mod.pad_to_size(hwc, th, tw)
+            x = torch.from_numpy(np.ascontiguousarray(hwc)).to(self.device,
+                                                               self.compute_dtype)
+            y = self.apply_fn(x.permute(2, 0, 1)[None])[0, :, :h, :w]
+            y = y.to(torch.float32).cpu().numpy()
+            return y[:, pad:-pad, pad:-pad] if pad else y
 
     def denoise_tiny(self, raw_hwc: np.ndarray, scale: float,
                      out_dtype: str = "uint16"):

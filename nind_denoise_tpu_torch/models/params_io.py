@@ -14,12 +14,19 @@ own copy of the mapping in ``nind_denoise_tpu/models/torch_export.py``:
 The ``.npz`` reader reads the flat-key format of the JAX package's
 ``params_io.save``: leaves under "/"-joined key paths, non-array leaves in
 a JSON entry. No pickle.
+
+``complete_path`` resolves a checkpoint directory to its best-validation
+epoch (``trainres.json``) or its highest epoch, as the JAX package's
+``params_io`` does. ``load_generator`` builds the model on the ``meta``
+device and assigns the checkpoint's tensors to it, so no random init runs.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict
+import os
+import re
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -112,9 +119,68 @@ def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
-def load_generator(path: str, activation: str = "PReLU") -> UtNet:
+def find_highest(dpath: str, keyword: str) -> Optional[str]:
+    """Highest-epoch checkpoint ``<keyword>_<epoch>.(npz|pt|pth)`` in dpath.
+    The keyword must be followed directly by ``_<epoch>``, so that
+    ``discriminator`` does not match ``discriminator2_*`` files."""
+    best, best_epoch = None, -1
+    for fn in os.listdir(dpath):
+        m = re.match(rf"{re.escape(keyword)}_(\d+)\.(npz|pt|pth)$", fn)
+        if m and int(m.group(1)) > best_epoch:
+            best, best_epoch = fn, int(m.group(1))
+    return os.path.join(dpath, best) if best else None
+
+
+def find_best(dpath: str, keyword: str) -> Optional[str]:
+    """Best-validation-loss epoch from trainres.json (generators only)."""
+    if keyword != "generator":
+        return None
+    resfpath = os.path.join(dpath, "trainres.json")
+    if not os.path.isfile(resfpath):
+        return None
+    with open(resfpath, "r") as fp:
+        res = json.load(fp)
+    try:
+        best_epoch = res["best_epoch"]["validation_loss"]
+    except KeyError:
+        return None
+    for ext in (".npz", ".pt"):
+        cand = os.path.join(dpath, f"generator_{best_epoch}{ext}")
+        if os.path.isfile(cand):
+            return cand
+    return None
+
+
+def complete_path(path: str, models_dpath: Optional[str] = None,
+                  keyword: str = "generator") -> str:
+    """A checkpoint file, a training directory (best, else highest epoch),
+    or a directory under ``models_dpath``; raises FileNotFoundError."""
+    if os.path.isfile(path):
+        return path
+    if os.path.isdir(path):
+        best = find_best(path, keyword)
+        if best is not None:
+            return best
+        highest = find_highest(path, keyword)
+        if highest is not None:
+            return highest
+        raise FileNotFoundError(f"no {keyword} checkpoints in {path}")
+    if models_dpath and os.path.isdir(os.path.join(models_dpath, path)):
+        return complete_path(os.path.join(models_dpath, path), None, keyword)
+    raise FileNotFoundError(f"model path not found: {path}")
+
+
+def load_generator(path: str, activation: str = "PReLU",
+                   models_dpath: Optional[str] = None) -> UtNet:
     """UtNet with the weights of ``path`` (``.pt`` state_dict or ``.npz``
-    JAX params), loaded strictly, on the CPU in float32."""
+    JAX params, resolved by ``complete_path``), loaded strictly, on the CPU
+    in float32. The model is built on the ``meta`` device and the
+    checkpoint's tensors are assigned to it: no random init runs, and a
+    missing, extra or misshapen key raises as in an ordinary load."""
+    if os.path.splitext(path)[1] not in ("", ".npz", ".pt", ".pth") \
+            and not os.path.isdir(path):
+        raise ValueError(f"unsupported checkpoint format: {path}")
+    path = complete_path(path, models_dpath, "generator")
     if path.endswith(".npz"):
         tree = load_npz(path)
         # native checkpoints may bundle {'params': ..., 'state': ...}
@@ -125,6 +191,8 @@ def load_generator(path: str, activation: str = "PReLU") -> UtNet:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     else:
         raise ValueError(f"unsupported checkpoint format: {path}")
-    model = UtNet(UtNet.funit_of(sd), activation)
-    model.load_state_dict(sd, strict=True)
+    sd = {k: v.to("cpu", torch.float32).contiguous() for k, v in sd.items()}
+    with torch.device("meta"):
+        model = UtNet(UtNet.funit_of(sd), activation)
+    model.load_state_dict(sd, strict=True, assign=True)
     return model

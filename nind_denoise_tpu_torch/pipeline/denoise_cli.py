@@ -1,25 +1,46 @@
-"""denoise — TIFF -> tiled UtNet denoise -> RL deblur -> JPEG, on one GPU.
+"""denoise — RAW or stage-1 TIFF -> denoise -> RL deblur -> JPEG, on one GPU.
 
-Counterpart of the ``--tiff-input`` in-memory path of
-``nind_denoise_tpu/pipeline/denoise_cli.py`` ``denoise_file``: the stage-1
-TIFF is decoded in its storage dtype, denoised by the tiled engine with the
-result kept on the device, deblurred there by Richardson-Lucy with the gmic
-``*65535/256, cut, round`` quantize, encoded by OpenCV, and the EXIF of the
-input is copied onto the output. Output naming follows the reference,
-including the _1.._99 collision counter.
+Counterpart of ``nind_denoise_tpu/pipeline/denoise_cli.py`` (the
+reference's docopt pipeline, src/denoise.py:8-35) on one device: the same
+options and defaults, file-or-directory input over the same RAW extension
+list, the same stage file naming (``<stem>_s1.tif`` 32-bit development,
+``_s1_denoised.tiff`` fp32, ``_s2.tif`` 16-bit), the _1.._99 collision
+counter and the model table of ``pipeline/operations.yaml`` (``--model``,
+default ``nind_generator_650.pt`` at ``models/nind/generator_650.pt`` under
+the working directory). Plus ``--device`` (CUDA unless ``--device cpu``)
+and ``--precision``.
 
-Not ported yet: the darktable stages (RAW input), ``--use-gmic``,
-directory batches and nightmode.
+* RAW input: the XMP sidecar is split (pipeline/xmp.py), darktable-cli
+  develops stage 1, the denoiser runs in process (``denoise_image_cli.run``)
+  to the ``_s1_denoised.tiff``, darktable applies stage 2 (16-bit,
+  ``--height``), and RL runs on the device from the stage-2 file, or in
+  gmic with ``--use-gmic``. A RAW without a sidecar is skipped.
+* ``--tiff-input`` with a sidecar and darktable found: the same from the
+  denoise on. Without them (and without ``--use-gmic`` and ``--debug``)
+  everything stays in memory: the denoised canvas stays on the device and
+  feeds RL there.
+* A directory: its files in sorted order, the engine built once for the
+  whole run (``Session``) and the next image decoded on a thread while the
+  current one runs.
 
-    python -m nind_denoise_tpu_torch.pipeline.denoise_cli img.tif \
-        --tiff-input --model_path generator.npz -o out/
+``-v`` prints the seconds of each stage: decode, load, denoise, rl+encode,
+exif, and develop and stage2 where darktable runs.
+
+Not ported, and raising ``NotImplementedError``: ``--rl-psf gmic_fast``
+(ROADMAP queue 1 item 4) and int8 compute (item 5). The JAX CLI's
+``--rl-impl`` (its choices name the TPU kernels) and ``--devices`` (item 9)
+are not flags here. The model table's download is left out: a missing
+checkpoint raises ``FileNotFoundError`` naming its path and the table's URL.
+
+    python -m nind_denoise_tpu_torch.pipeline.denoise_cli img.tif --tiff-input -o out/
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
+import os
 import pathlib
-import time
 from typing import Optional
 
 import cv2
@@ -27,32 +48,55 @@ import numpy as np
 import torch
 
 from ..core import imgio
-from ..core.tiles import TilingError, adapt_cs_ucs, default_cs_ucs
-from ..engine.tile_engine import make_engine
+from ..engine.tile_engine import AdaptiveEngine
 from ..models import params_io
-from ..models.utnet import check_cs
 from ..ops import rl_deblur
+from ..utils.log import StageTimers
 from . import exif as exif_mod
+from . import external, xmp
+
+VALID_EXTENSIONS = [
+    "." + e.lower() for e in
+    ["3FR", "ARW", "SR2", "SRF", "CR2", "CR3", "CRW", "DNG", "ERF", "FFF",
+     "MRW", "NEF", "NRW", "ORF", "PEF", "RAF", "RW2"]
+]
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="denoise", description="Denoise the TIFF <raw_image> and save the result.")
-    p.add_argument("raw_image", help="stage-1 TIFF (with --tiff-input)")
+        prog="denoise", description="Denoise the RAW image <raw_image> and save the result.")
+    p.add_argument("raw_image", help="RAW file (or directory of RAWs)")
     p.add_argument("-o", "--output-path", dest="output_path",
                    help="Where to save the result (defaults to input directory)")
     p.add_argument("-e", "--extension", default="jpg", help="Output extension")
+    p.add_argument("-d", "--dt", help="Path to darktable-cli")
+    p.add_argument("-g", "--gmic", help="Path to gmic")
     p.add_argument("-q", "--quality", default="90", help="JPEG quality")
+    p.add_argument("--nightmode", action="store_true",
+                   help="Normalize brightness (exposure, toneequal) before denoise")
     p.add_argument("--no_deblur", action="store_true", help="Skip RL-deblur")
+    p.add_argument("--debug", action="store_true", help="Keep intermediate files")
     p.add_argument("--tiff-input", dest="tiff_input", action="store_true",
                    help="Input is already a stage-1 TIFF")
     p.add_argument("--sigma", default="1", help="RL-deblur sigma")
     p.add_argument("--iterations", default="10", help="RL-deblur iterations")
+    p.add_argument("--rl-psf", default="gaussian",
+                   choices=["gaussian", "gmic_fast"], dest="rl_psf",
+                   help="RL blur PSF: the exact truncated-FIR gaussian; gmic_fast "
+                        "(the Deriche IIR) is not ported yet (ROADMAP queue 1 item 4)")
+    p.add_argument("--height", help="Max output height")
+    p.add_argument("--copy_num", help="darktable duplicate number (XMP naming)")
     p.add_argument("-v", "--verbose", action="store_true")
-    p.add_argument("--model_path", required=True, help="generator checkpoint")
+    p.add_argument("--version", action="version", version="nind_denoise_tpu_torch")
+    p.add_argument("--use-gmic", dest="use_gmic", action="store_true",
+                   help="Use the gmic binary for RL-deblur instead of the GPU")
+    p.add_argument("--model", default="nind_generator_650.pt",
+                   help="Model table key (pipeline/operations.yaml)")
+    p.add_argument("--model_path", help="Override generator checkpoint path")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--compute_dtype", default="bfloat16",
-                   choices=["bfloat16", "float32"])
+                   choices=["bfloat16", "float32", "int8", "int8_static"],
+                   help="int8/int8_static are not ported yet (ROADMAP queue 1 item 5)")
     p.add_argument("--precision", default="default", choices=["default", "float32"],
                    help="float32: no TF32 in float32 convs and matmuls")
     p.add_argument("--cs", type=int, help="Override tile size")
@@ -61,23 +105,139 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _initial_outpath(args, input_path: pathlib.Path) -> pathlib.Path:
-    output_dir = pathlib.Path(args.output_path) if args.output_path else input_path.parent
-    ext = "." + args.extension if args.extension[0] != "." else args.extension
-    return output_dir if output_dir.suffix != "" \
-        else (output_dir / input_path.name).with_suffix(ext)
+def check_ported(args) -> None:
+    """Raise on a flag value the port does not run yet."""
+    if args.rl_psf != "gaussian":
+        raise NotImplementedError(
+            "--rl-psf gmic_fast (the Deriche IIR) is not ported yet "
+            "(ROADMAP queue 1 item 4)")
+    if args.compute_dtype.startswith("int8"):
+        raise NotImplementedError(
+            f"--compute_dtype {args.compute_dtype} is not ported yet "
+            f"(ROADMAP queue 1 item 5, int8)")
 
 
-def _collision_resolve(outpath: pathlib.Path) -> pathlib.Path:
-    """_1.._99 collision counter (denoise.py:383-389), appending to the
-    already-suffixed stem on repeated collisions as the reference does."""
-    i = 1
-    while outpath.exists():
-        outpath = outpath.with_stem(outpath.stem + "_" + str(i))
-        i += 1
-        if i >= 99:
-            raise FileExistsError(f"too many files with the same name near {outpath}")
-    return outpath
+def check_good_input(path: pathlib.Path, extensions) -> bool:
+    extensions = [extensions] if isinstance(extensions, str) else list(extensions)
+    if not path.is_file():
+        print(f"This isn't a file: {path} — skipping.")
+        return False
+    if path.suffix.lower() not in extensions:
+        if path.suffix.lower() != ".xmp":
+            print(f"Not a (supported) RAW file: {path}, skipping.")
+        return False
+    return True
+
+
+def get_stage_filepaths(outpath: pathlib.Path, stage: int):
+    """tif = 16-bit, tiff = 32-bit (intentional, denoise.py:259-276)."""
+    if stage == 1:
+        return (outpath.parent / (outpath.stem + "_s1.tif"),
+                outpath.parent / (outpath.stem + "_s1_denoised.tiff"))
+    return outpath.parent / (outpath.stem + "_s2.tif")
+
+
+def resolve_model(args, config) -> dict:
+    """The ``models`` table entry of ``--model``, its path overridden by
+    ``--model_path`` and made absolute against the working directory.
+    Raises FileNotFoundError when the checkpoint is not there."""
+    mcfg = dict(config["models"][args.model])
+    if args.model_path:
+        mcfg["path"] = args.model_path
+    if not os.path.isabs(mcfg["path"]):
+        mcfg["path"] = os.path.join(os.getcwd(), mcfg["path"])
+    if not os.path.exists(mcfg["path"]):
+        where = f"; it is published at {mcfg['url']}" if "url" in mcfg else ""
+        raise FileNotFoundError(
+            f"model checkpoint not found: {mcfg['path']}{where} (place it there "
+            f"or pass --model_path)")
+    return mcfg
+
+
+class Session:
+    """What one run of ``main`` shares across its files: the engines, one
+    ``AdaptiveEngine`` per (checkpoint, network, cs, ucs, batch, dtype,
+    precision, device) — the checkpoint is loaded once, and each engine
+    adapts its tiling per image, so a small image among large ones gets
+    its own tile size, never a larger one's — and the decode-ahead thread
+    of directory mode. ``close`` shuts the thread down."""
+
+    def __init__(self):
+        self.engines: dict = {}
+        self.taken: set = set()  # output paths reserved by earlier files
+        self._ahead: dict = {}
+        self._pool: Optional[cf.ThreadPoolExecutor] = None
+
+    def engine(self, mcfg: dict, args, timers: StageTimers) -> AdaptiveEngine:
+        network = mcfg.get("network", "UtNet")
+        key = (mcfg["path"], network, args.cs, args.ucs, args.batch_size,
+               args.compute_dtype, args.precision, args.device)
+        if key not in self.engines:
+            with timers.stage("load"):
+                model = params_io.load_generator(mcfg["path"],
+                                                 mcfg.get("activation", "PReLU"))
+            with timers.stage("denoise"):
+                self.engines[key] = AdaptiveEngine(
+                    network, model, cs=args.cs, ucs=args.ucs,
+                    batch_size=args.batch_size, compute_dtype=args.compute_dtype,
+                    precision=args.precision, device=args.device)
+        return self.engines[key]
+
+    def prefetch(self, fpath: pathlib.Path) -> None:
+        """Decode ``fpath`` on the thread (cv2 releases the GIL)."""
+        if self._pool is None:
+            self._pool = cf.ThreadPoolExecutor(max_workers=1)
+        key = str(fpath)
+        if key not in self._ahead:
+            self._ahead[key] = self._pool.submit(imgio.load_img_raw, key)
+
+    def decode(self, fpath: pathlib.Path):
+        fut = self._ahead.pop(str(fpath), None)
+        return fut.result() if fut is not None else imgio.load_img_raw(str(fpath))
+
+    def close(self) -> None:
+        self._ahead.clear()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+
+
+def _run_denoiser(mcfg: dict, in_fpath: pathlib.Path, out_fpath: pathlib.Path,
+                  args, timers: StageTimers) -> None:
+    """In-process equivalent of the reference's denoise_image.py subprocess."""
+    from . import denoise_image_cli
+
+    argv = ["-i", str(in_fpath), "-o", str(out_fpath),
+            "--network", mcfg.get("network", "UtNet"),
+            "--model_path", mcfg["path"],
+            "--compute_dtype", args.compute_dtype,
+            "--precision", args.precision,
+            "--batch_size", str(args.batch_size)]
+    if args.cs:
+        argv += ["--cs", str(args.cs)]
+    if args.ucs:
+        argv += ["--ucs", str(args.ucs)]
+    if args.device:
+        argv += ["--device", args.device]
+    ns = denoise_image_cli.build_parser().parse_known_args_layered(argv)[0]
+    if mcfg.get("activation"):
+        ns.model_parameters = f"activation={mcfg['activation']}"
+    denoise_image_cli.run(ns, timers=timers)
+
+
+def _denoise_to_tensor(session: Session, mcfg: dict, in_fpath: pathlib.Path,
+                       args, timers: StageTimers) -> torch.Tensor:
+    """File -> denoised float32 HWC tensor on the engine's device (the fast
+    path: the canvas feeds RL without leaving the device). Storage-dtype
+    pixels go to the engine, which normalizes on the device."""
+    with timers.stage("decode"):
+        raw, scale = session.decode(in_fpath)
+    engine = session.engine(mcfg, args, timers)
+    with timers.stage("denoise"):
+        out = engine.denoise_raw(raw, scale, out_dtype="device")
+        if args.verbose and out.is_cuda:
+            torch.cuda.synchronize()  # charge the queued forwards to this stage
+    return out
 
 
 def _encode_u8(u8_hwc: np.ndarray, out_fpath: pathlib.Path, quality: str) -> None:
@@ -87,72 +247,210 @@ def _encode_u8(u8_hwc: np.ndarray, out_fpath: pathlib.Path, quality: str) -> Non
     imgio._checked_imwrite(str(out_fpath), bgr, params)
 
 
-def _denoise_to_tensor(args, in_fpath: pathlib.Path, stages: dict) -> torch.Tensor:
-    """File -> denoised float32 HWC tensor on the engine's device. Adds
-    the host seconds of the decode and the checkpoint load to ``stages``."""
-    t0 = time.time()
-    raw, scale = imgio.load_img_raw(str(in_fpath))
-    t1 = time.time()
-    model = params_io.load_generator(args.model_path)
-    stages["decode"], stages["load"] = t1 - t0, time.time() - t1
-    cs, ucs = args.cs, args.ucs
-    if cs is None or ucs is None:
-        cs, ucs = default_cs_ucs("UtNet")
-    kw = dict(batch_size=args.batch_size, compute_dtype=args.compute_dtype,
-              precision=args.precision, device=args.device)
-    try:
-        cs, ucs = adapt_cs_ucs(raw.shape[0], raw.shape[1], cs, ucs, check=check_cs)
-    except TilingError:
-        # below the minimum tiling: pad-to-valid single forward
-        engine = make_engine("UtNet", model, **kw)
-        return engine.denoise_tiny(raw, scale, out_dtype="device")
-    engine = make_engine("UtNet", model, cs=cs, ucs=ucs, **kw)
-    return engine.denoise_raw(raw, scale, out_dtype="device")
+def _rl_deblur_ondevice(in_fpath: pathlib.Path, out_fpath: pathlib.Path,
+                        sigma: int, iterations: int, quality: str,
+                        verbose: bool = False, device=None) -> None:
+    """RL from the stage-2 file on the device, then the gmic quantize."""
+    img = imgio.load_img(str(in_fpath)).transpose(1, 2, 0)  # [0,1] HWC
+    _encode_u8(rl_deblur.rl_deblur_to_uint8(img, float(sigma), int(iterations),
+                                            device=device), out_fpath, quality)
+    if verbose:
+        print(f"Applied on-device RL-deblur to: {out_fpath}")
 
 
-def denoise_file(args, input_path: pathlib.Path) -> Optional[pathlib.Path]:
-    print(input_path)
-    if not args.tiff_input:
-        raise NotImplementedError(
-            "RAW input needs the darktable stages, which are not ported; "
-            "pass a stage-1 TIFF with --tiff-input")
-    if not input_path.is_file() or input_path.suffix.lower() not in (".tif", ".tiff"):
-        raise FileNotFoundError(f"not a TIFF file: {input_path}")
-    outpath = _collision_resolve(_initial_outpath(args, input_path))
-    sigma = int(args.sigma or 1)
-    iterations = int(args.iterations or 10)
-    quality = args.quality or "90"
+def _initial_outpath(args, input_path: pathlib.Path) -> pathlib.Path:
+    output_dir = pathlib.Path(args.output_path) if args.output_path else input_path.parent
+    ext = "." + args.extension if args.extension[0] != "." else args.extension
+    return output_dir if output_dir.suffix != "" \
+        else (output_dir / input_path.name).with_suffix(ext)
 
-    stages: dict = {}
-    t0 = time.time()
-    denoised01 = _denoise_to_tensor(args, input_path, stages)
-    if args.verbose and denoised01.is_cuda:
-        torch.cuda.synchronize()  # charge the queued forwards to this stage
-    t1 = time.time()
-    stages["denoise"] = t1 - t0 - stages["decode"] - stages["load"]
-    if not args.no_deblur:
-        u8 = rl_deblur.rl_to_u8_device(denoised01, sigma, iterations)
-        _encode_u8(u8.cpu().numpy(), outpath, quality)
-    elif outpath.suffix.lower() == ".tiff":
-        imgio.save_img(denoised01.cpu().numpy().transpose(2, 0, 1), str(outpath))
-    else:
-        u8 = torch.round(torch.clamp(denoised01, 0, 1) * 255).to(torch.uint8)
-        _encode_u8(u8.cpu().numpy(), outpath, quality)
-    t2 = time.time()
-    stages["rl+encode"] = t2 - t1
-    exif_mod.clone_exif(input_path, outpath, verbose=args.verbose)
-    stages["exif"] = time.time() - t2
-    if args.verbose:
-        print("stages: " + ", ".join(f"{k}: {v:.3f}s" for k, v in stages.items()))
+
+def _collision_resolve(outpath: pathlib.Path, taken=frozenset()) -> pathlib.Path:
+    """_1.._99 collision counter (denoise.py:383-389), appending to the
+    already-suffixed stem on repeated collisions as the reference does.
+    ``taken``: paths to treat as existing (reserved, not yet written)."""
+    i = 1
+    while outpath.exists() or outpath in taken:
+        outpath = outpath.with_stem(outpath.stem + "_" + str(i))
+        i += 1
+        if i >= 99:
+            raise FileExistsError(f"too many files with the same name near {outpath}")
     return outpath
 
 
-def main(argv=None) -> Optional[pathlib.Path]:
+def denoise_file(args, input_path: pathlib.Path,
+                 session: Optional[Session] = None) -> Optional[pathlib.Path]:
+    """Denoise one file; returns the output path, or None for a RAW that
+    has no XMP sidecar (skipped)."""
+    print(input_path)
+    check_ported(args)
+    if session is None:
+        session = Session()
+        try:
+            return denoise_file(args, input_path, session)
+        finally:
+            session.close()
+    timers = StageTimers()
+    outpath = _initial_outpath(args, input_path)
+
+    # darktable duplicate naming (--copy_num, denoise.py:342-350)
+    if args.copy_num:
+        n = int(args.copy_num)
+        copy_number = f"_0{args.copy_num}" if 0 < n < 10 else \
+            (f"_{args.copy_num}" if 9 < n < 100 else "")
+        input_xmp = input_path.with_stem(input_path.stem + copy_number) \
+            .with_suffix(input_path.suffix + ".xmp")
+    else:
+        input_xmp = input_path.with_suffix(input_path.suffix + ".xmp")
+    if args.verbose:
+        print(input_xmp)
+
+    sigma = int(args.sigma or 1)
+    quality = args.quality or "90"
+    iterations = int(args.iterations or 10)
+
+    config = xmp.read_config(nightmode=args.nightmode, verbose=args.verbose)
+    cmd_darktable = external.find_darktable(args.dt)
+    cmd_gmic = external.find_gmic(args.gmic) if args.use_gmic else None
+    if args.use_gmic and cmd_gmic is None:
+        raise FileNotFoundError(f"--use-gmic: gmic not found ({args.gmic or 'PATH'})")
+    rldeblur = not args.no_deblur
+
+    if cmd_darktable is None and not args.tiff_input:
+        print("Error: darktable-cli not found and input is RAW.")
+        raise FileNotFoundError("darktable-cli")
+
+    good_file = ((args.tiff_input and check_good_input(input_path, [".tif", ".tiff"]))
+                 or check_good_input(input_path, VALID_EXTENSIONS)
+                 or check_good_input(input_xmp, ".xmp"))
+    if not good_file:
+        print("The input raw-image or its XMP were not found, or are not valid.")
+        raise FileNotFoundError(input_path)
+
+    have_xmp = input_xmp.is_file()
+    if not args.tiff_input and not have_xmp:
+        # the reference crashes the whole run here (denoise.py:392 parses
+        # the sidecar unconditionally): skip just this file
+        print(f"No XMP sidecar for {input_path} ({input_xmp.name} not "
+              f"found); skipping (darktable development needs the "
+              f"history stack).")
+        return None
+    mcfg = resolve_model(args, config)
+
+    outpath = _collision_resolve(outpath, session.taken)
+    session.taken.add(outpath)
+    s1_fpath, s1_denoised_fpath = get_stage_filepaths(outpath, 1)
+    s2_fpath = get_stage_filepaths(outpath, 2)
+    if not rldeblur:
+        s2_fpath = outpath  # no deblur stage -> stage 2 writes the final file
+
+    if not args.tiff_input:
+        xmp.split_history(input_xmp, config=config, verbose=args.verbose)
+        s1_fpath.unlink(missing_ok=True)
+        with timers.stage("develop"):
+            external.run_darktable_stage1(cmd_darktable, input_path,
+                                          input_xmp.with_suffix(".s1.xmp"),
+                                          s1_fpath)
+    else:
+        s1_fpath = input_path
+        if have_xmp:
+            xmp.split_history(input_xmp, config=config, verbose=args.verbose)
+        else:
+            print("Warning: no XMP sidecar; stage-2 darktable ops unavailable.")
+
+    # ---- fast path: no darktable stage 2, RL on the device, no kept
+    # intermediates -> the image stays in memory from decode to encode
+    stage2_runs = cmd_darktable is not None and have_xmp
+    if not stage2_runs and not args.use_gmic and not args.debug:
+        denoised01 = _denoise_to_tensor(session, mcfg, s1_fpath, args, timers)
+        with timers.stage("rl+encode"):
+            if rldeblur:
+                u8 = rl_deblur.rl_to_u8_device(denoised01, sigma, iterations)
+                _encode_u8(u8.cpu().numpy(), outpath, quality)
+            elif outpath.suffix.lower() == ".tiff":
+                imgio.save_img(denoised01.cpu().numpy().transpose(2, 0, 1), str(outpath))
+            else:
+                u8 = torch.round(torch.clamp(denoised01, 0, 1) * 255).to(torch.uint8)
+                _encode_u8(u8.cpu().numpy(), outpath, quality)
+        with timers.stage("exif"):
+            exif_mod.clone_exif(s1_fpath, outpath, verbose=args.verbose)
+        for f in [input_xmp.with_suffix(".s1.xmp"), input_xmp.with_suffix(".s2.xmp")]:
+            f.unlink(missing_ok=True)
+        if args.verbose:
+            print(f"stages: {timers.summary()}")
+        return outpath
+
+    # ---- denoise (in process) to the stage-1 denoised TIFF ----
+    s1_denoised_fpath.unlink(missing_ok=True)
+    _run_denoiser(mcfg, s1_fpath, s1_denoised_fpath, args, timers)
+    if not s1_denoised_fpath.exists():
+        raise RuntimeError(f"denoiser did not produce {s1_denoised_fpath}")
+    exif_mod.clone_exif(input_path, s1_denoised_fpath, verbose=args.verbose)
+
+    # ---- stage 2 (darktable ops on the denoised image) ----
+    if rldeblur and s2_fpath.is_file():
+        s2_fpath.unlink()
+    if stage2_runs:
+        with timers.stage("stage2"):
+            external.run_darktable_stage2(cmd_darktable, s1_denoised_fpath,
+                                          input_xmp.with_suffix(".s2.xmp"),
+                                          s2_fpath, height=args.height or "0")
+    else:
+        print("Warning: skipping darktable stage 2 (missing binary or XMP); "
+              "writing denoised image as stage-2 output.")
+        imgio.save_img(imgio.load_img(str(s1_denoised_fpath)), str(s2_fpath))
+
+    # ---- RL-deblur ----
+    if rldeblur:
+        with timers.stage("rl+encode"):
+            if args.use_gmic:
+                restore = None
+                if " " in outpath.name:  # gmic can't handle spaces (denoise.py:464-469)
+                    restore = outpath.name
+                    outpath = outpath.with_name(outpath.name.replace(" ", "_"))
+                external.run_gmic_rl_deblur(cmd_gmic, s2_fpath, outpath.name,
+                                            sigma, iterations, quality)
+                if restore is not None:
+                    outpath = outpath.replace(outpath.with_name(restore))
+            else:
+                _rl_deblur_ondevice(s2_fpath, outpath, sigma, iterations, quality,
+                                    verbose=args.verbose, device=args.device)
+
+    with timers.stage("exif"):
+        exif_mod.clone_exif(s1_fpath, outpath, verbose=args.verbose)
+
+    if not args.debug:
+        for f in [s1_fpath, s1_denoised_fpath, s2_fpath,
+                  input_xmp.with_suffix(".s1.xmp"), input_xmp.with_suffix(".s2.xmp")]:
+            if f not in (input_path, outpath):
+                f.unlink(missing_ok=True)
+    if args.verbose:
+        print(f"stages: {timers.summary()}")
+    return outpath
+
+
+def main(argv=None):
+    """Denoise a file (returns its output path, or None if skipped) or a
+    directory (returns the list, in sorted file order)."""
     args = build_parser().parse_args(argv)
     input_path = pathlib.Path(args.raw_image)
-    if input_path.is_dir():
-        raise NotImplementedError("directory input is not ported yet")
-    return denoise_file(args, input_path)
+    session = Session()
+    try:
+        if not input_path.is_dir():
+            return denoise_file(args, input_path, session)
+        # the reference's directory loop over the RAW extension list
+        # (denoise.py:491-500); with --tiff-input, the TIFFs
+        exts = [".tif", ".tiff"] if args.tiff_input else VALID_EXTENSIONS
+        files = [f for f in sorted(input_path.iterdir()) if f.suffix.lower() in exts]
+        written = []
+        for i, f in enumerate(files):
+            if args.tiff_input and i + 1 < len(files):
+                session.prefetch(files[i + 1])  # overlap the decode with compute
+            print(f"\n----------------------- {f.name} -------------------------\n")
+            written.append(denoise_file(args, f, session))
+        return written
+    finally:
+        session.close()
 
 
 if __name__ == "__main__":

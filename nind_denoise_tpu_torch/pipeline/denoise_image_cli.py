@@ -1,9 +1,20 @@
-"""denoise_image — tiled single-image denoising CLI on one GPU.
+"""denoise_image — single-image denoising CLI on one GPU.
 
-Counterpart of the single-device tiled path and the tiny-image path of
-``nind_denoise_tpu/pipeline/denoise_image_cli.py`` ``run()``: the same flags
-for those paths, plus ``--device`` (CUDA unless ``--device cpu``). The
-multi-device, whole-image and debug-dump paths are not ported yet.
+Counterpart of ``nind_denoise_tpu/pipeline/denoise_image_cli.py`` ``run()``
+on one device: the same flags (``--cs/--ucs/--overlap/-i/-o/-b/--network/
+--model_path/--model_parameters/--max_subpixels/--whole_image/--pad/
+--models_dpath/--exif_method/--debug/--compute_dtype/--precision/-q``), the
+layered YAML config (``-c/--config``, ``-c2/--config2`` over the port's
+``configs/common_conf_default.yaml``), network and tile-size autodetection
+from the model path, the default output path next to the model, the tiled,
+tiny-image and whole-image paths, ``--debug`` tile dumps into ``dbg/``, and
+the reference's bit depth by output extension. Plus ``--device`` (CUDA
+unless ``--device cpu``).
+
+Not ported, and raising ``NotImplementedError`` rather than being ignored:
+more than one device (``--devices`` > 1, ROADMAP queue 1 item 9), int8
+compute (``--compute_dtype int8*``, item 5), ``--trace_dir`` (item 10) and
+networks other than UtNet (item 7).
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_image_cli \
         -i noisy.tif -o denoised.tiff --network UtNet --model_path ckpt.npz
@@ -11,7 +22,6 @@ multi-device, whole-image and debug-dump paths are not ported yet.
 
 from __future__ import annotations
 
-import argparse
 import os
 import sys
 import time
@@ -25,6 +35,8 @@ from ..core.tiles import TilingError, adapt_cs_ucs, default_cs_ucs
 from ..engine.tile_engine import make_engine
 from ..models import params_io
 from ..models.utnet import check_cs
+from ..utils import conf
+from ..utils.log import StageTimers
 from . import exif as exif_mod
 
 
@@ -64,8 +76,9 @@ def make_output_fpath(input_fpath: str, model_fpath: str) -> str:
                                  f"{os.path.basename(model_fpath)}.tif")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__)
+def build_parser() -> conf.LayeredArgumentParser:
+    p = conf.LayeredArgumentParser(
+        description=__doc__, default_config_files=[conf.common_config_fpath()])
     p.add_argument("--cs", type=int, help="Tile size")
     p.add_argument("--ucs", type=int, help="Useful tile size")
     p.add_argument("-ol", "--overlap", default=6, type=int,
@@ -74,22 +87,49 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", type=str,
                    help="Output file (default: model_dpath/test/denoised_images/fn.tif)")
     p.add_argument("-b", "--batch_size", type=int, default=8)
+    p.add_argument("--debug", action="store_true",
+                   help="Dump each tile's input and output as JPEGs into dbg/")
     p.add_argument("--exif_method", default="auto", type=str,
                    help="auto, or noexif to skip EXIF transplant")
     p.add_argument("--g_network", "--network", "--arch", type=str)
-    p.add_argument("--model_path", help="generator checkpoint (.npz or torch .pt)")
+    p.add_argument("--model_path",
+                   help="generator checkpoint (.npz or torch .pt), or a training "
+                        "directory (best, else highest epoch)")
     p.add_argument("--model_parameters", type=str,
                    help='"parameter1=value1,parameter2=value2"')
     p.add_argument("--max_subpixels", type=int)
+    p.add_argument("--whole_image", action="store_true",
+                   help="One forward over the whole image instead of tiles")
+    p.add_argument("--pad", type=int, help="Whole-image mode: side mirror width")
+    p.add_argument("--models_dpath", help="Directory that --model_path names are under")
     p.add_argument("--compute_dtype", default="bfloat16",
-                   choices=["bfloat16", "float32"])
+                   choices=["bfloat16", "float32", "int8", "int8_static"],
+                   help="int8/int8_static are not ported yet (ROADMAP queue 1 item 5)")
     p.add_argument("--precision", default="default", choices=["default", "float32"],
                    help="float32: no TF32 in float32 convs and matmuls")
+    p.add_argument("--trace_dir", help="not ported yet (ROADMAP queue 1 item 10)")
     p.add_argument("-q", "--quality", type=int, default=95,
                    help="JPEG quality for .jpg outputs")
-    p.add_argument("--device", default=None,
-                   help="cuda (default) or cpu")
+    p.add_argument("--devices", type=int,
+                   help="1 (one GPU); more is not ported yet (ROADMAP queue 1 item 9)")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
+
+
+def check_ported(args) -> None:
+    """Raise on a flag value the port does not run yet."""
+    if args.devices is not None and args.devices > 1:
+        raise NotImplementedError(
+            "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
+    if args.compute_dtype.startswith("int8"):
+        raise NotImplementedError(
+            f"--compute_dtype {args.compute_dtype} is not ported yet "
+            f"(ROADMAP queue 1 item 5, int8)")
+    if args.trace_dir:
+        raise NotImplementedError("--trace_dir is not ported yet (ROADMAP queue 1 item 10)")
+    if args.g_network != "UtNet":
+        raise NotImplementedError(
+            f"--network {args.g_network} is not ported yet (ROADMAP queue 1 item 7)")
 
 
 def load_generator_model(args):
@@ -100,7 +140,8 @@ def load_generator_model(args):
         kwargs["activation"] = act
         print(f"set model parameters to activation={act} based on model_path")
     return params_io.load_generator(args.model_path,
-                                    kwargs.get("activation", "PReLU"))
+                                    kwargs.get("activation", "PReLU"),
+                                    models_dpath=args.models_dpath)
 
 
 def save_uint8(img_hwc: np.ndarray, path: str, quality: int = 95) -> None:
@@ -112,13 +153,18 @@ def save_uint16(img_hwc: np.ndarray, path: str) -> None:
     imgio._checked_imwrite(path, cv2.cvtColor(img_hwc, cv2.COLOR_RGB2BGR))
 
 
-def run(args) -> str:
+def run(args, timers: Optional[StageTimers] = None) -> str:
+    """Denoise ``args.input`` to ``args.output``. ``timers`` (optional)
+    collects the decode, load and denoise seconds."""
     if args.model_path is None:
         raise SystemExit("--model_path is required")
     autodetect_network_cs_ucs(args)
+    check_ported(args)
     if args.output is None:
         args.output = make_output_fpath(args.input, args.model_path)
-    model = load_generator_model(args)
+    timers = timers or StageTimers()
+    with timers.stage("load"):
+        model = load_generator_model(args)
 
     def build_engine(cs, ucs):
         return make_engine(args.g_network, model, cs=cs, ucs=ucs,
@@ -126,31 +172,41 @@ def run(args) -> str:
                            compute_dtype=args.compute_dtype,
                            precision=args.precision,
                            max_subpixels=args.max_subpixels,
+                           debug_dir="dbg" if args.debug else None,
                            device=args.device)
 
     start_time = time.time()
-    raw, scale = imgio.load_img_raw(args.input)
-    try:
-        cs, ucs = adapt_cs_ucs(raw.shape[0], raw.shape[1], args.cs, args.ucs,
-                               args.overlap, check_cs)
-        if (cs, ucs) != (args.cs, args.ucs):
-            print(f"Image {raw.shape[1]}x{raw.shape[0]} too small for "
-                  f"cs={args.cs}/ucs={args.ucs}; using cs={cs}, ucs={ucs}")
-        engine = build_engine(cs, ucs)
-        den = lambda dt: engine.denoise_raw(raw, scale, out_dtype=dt)
-    except TilingError:
-        print(f"Image {raw.shape[1]}x{raw.shape[0]} below the minimum "
-              f"tiling; denoising as one padded forward")
-        engine = build_engine(args.cs, args.ucs)
-        den = lambda dt: engine.denoise_tiny(raw, scale, out_dtype=dt)
-    ext = os.path.splitext(args.output)[1].lower()
-    if ext in (".png", ".tif"):
-        save_uint16(den("uint16"), args.output)
-    elif ext in (".jpg", ".jpeg"):
-        save_uint8(den("uint8"), args.output, quality=args.quality)
-    else:  # .tiff fp32, unclipped
-        out = den("float32" if args.precision == "float32" else "float16")
-        imgio.save_img(out.astype(np.float32).transpose(2, 0, 1), args.output)
+    if args.whole_image:
+        with timers.stage("decode"):
+            img = imgio.load_img(args.input)
+        with timers.stage("denoise"):
+            out_chw = build_engine(args.cs, args.ucs).denoise_whole(img, pad=args.pad or 0)
+            imgio.save_img(out_chw, args.output)
+    else:
+        with timers.stage("decode"):
+            raw, scale = imgio.load_img_raw(args.input)
+        with timers.stage("denoise"):
+            try:
+                cs, ucs = adapt_cs_ucs(raw.shape[0], raw.shape[1], args.cs, args.ucs,
+                                       args.overlap, check_cs)
+                if (cs, ucs) != (args.cs, args.ucs):
+                    print(f"Image {raw.shape[1]}x{raw.shape[0]} too small for "
+                          f"cs={args.cs}/ucs={args.ucs}; using cs={cs}, ucs={ucs}")
+                engine = build_engine(cs, ucs)
+                den = lambda dt: engine.denoise_raw(raw, scale, out_dtype=dt)
+            except TilingError:
+                print(f"Image {raw.shape[1]}x{raw.shape[0]} below the minimum "
+                      f"tiling; denoising as one padded forward")
+                engine = build_engine(args.cs, args.ucs)
+                den = lambda dt: engine.denoise_tiny(raw, scale, out_dtype=dt)
+            ext = os.path.splitext(args.output)[1].lower()
+            if ext in (".png", ".tif"):
+                save_uint16(den("uint16"), args.output)
+            elif ext in (".jpg", ".jpeg"):
+                save_uint8(den("uint8"), args.output, quality=args.quality)
+            else:  # .tiff fp32, unclipped
+                out = den("float32" if args.precision == "float32" else "float16")
+                imgio.save_img(out.astype(np.float32).transpose(2, 0, 1), args.output)
     print(f"Denoised image written to {args.output}")
     if args.exif_method != "noexif":
         exif_mod.clone_exif(args.input, args.output)
@@ -159,7 +215,8 @@ def run(args) -> str:
 
 
 def main(argv=None):
-    run(build_parser().parse_args(argv))
+    args, _ = build_parser().parse_known_args_layered(argv)
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,217 @@
+"""The port's product CLI on its darktable paths against the JAX CLI, with
+the same stand-ins for darktable-cli and gmic (tools/fixtures.py), fp32 on
+the CPU (``--compute_dtype float32``): RAW input, --tiff-input with a
+sidecar (stage 2 runs), --use-gmic, --debug with --nightmode (the kept
+intermediates), --no_deblur, --copy_num and a RAW without a sidecar. The
+pre-encode uint8 images agree within 1 LSB and the stand-ins' command lines
+are equal. Then the port alone: a missing checkpoint or darktable raises,
+flag values not ported raise, and a directory loads its checkpoint once
+with every output equal to its own single run."""
+
+import json
+import os
+import xml.etree.ElementTree as ET
+
+import cv2
+import numpy as np
+import pytest
+
+from nind_denoise_tpu.ops import rl_deblur as jax_rl
+from nind_denoise_tpu.pipeline import denoise_cli as jax_cli
+from nind_denoise_tpu.pipeline import denoise_image_cli as jax_image_cli
+from nind_denoise_tpu_torch.engine import tile_engine as port_engine
+from nind_denoise_tpu_torch.pipeline import denoise_cli as port_cli
+from nind_denoise_tpu_torch.pipeline import denoise_image_cli as port_image_cli
+from nind_denoise_tpu_torch.tools import fixtures
+from test_pipeline import SIDECAR
+from test_torch_xmp import _assert_same_tree
+
+H, W = 120, 140
+COMMON = ["--cs", "104", "--ucs", "88", "--batch_size", "2",
+          "--compute_dtype", "float32", "-q", "95"]
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("ckpt") / "generator_1.npz")
+    fixtures.write_jax_checkpoint(path, 8, seed=21)
+    return path
+
+
+def _capture(monkeypatch):
+    """The uint8 images each CLI encodes: the JAX CLI through its encoder
+    (in-memory path) and its host RL (file path), the port through its
+    encoder (both paths)."""
+    seen = {"jax": [], "port": []}
+    for side, mod in (("jax", jax_cli), ("port", port_cli)):
+        encode = mod._encode_u8
+
+        def spy(u8, path, quality, _side=side, _encode=encode):
+            seen[_side].append(np.array(u8))
+            _encode(u8, path, quality)
+
+        monkeypatch.setattr(mod, "_encode_u8", spy)
+    to_u8 = jax_rl.rl_deblur_to_uint8
+
+    def rl_spy(*a, **kw):
+        u8 = to_u8(*a, **kw)
+        seen["jax"].append(np.array(u8))
+        return u8
+
+    monkeypatch.setattr(jax_rl, "rl_deblur_to_uint8", rl_spy)
+    # the JAX image CLI on one device (the test mesh has eight)
+    monkeypatch.setattr(jax_image_cli, "_resolve_devices", lambda args: 1)
+    return seen
+
+
+def _tiff(path, seed=0, hw=(H, W)):
+    img = (np.random.default_rng(seed).random((*hw, 3)) * 65535).astype(np.uint16)
+    assert cv2.imwrite(str(path), img)
+    return path
+
+
+CASES = {  # name -> (input file, sidecar name or None, extra argv)
+    "raw": ("img.nef", "img.nef.xmp", ["--height", "120"]),
+    "tiff_sidecar": ("img.tif", "img.tif.xmp", ["--tiff-input"]),
+    "use_gmic": ("img.nef", "img.nef.xmp", ["--use-gmic"]),
+    "debug_nightmode": ("img.nef", "img.nef.xmp", ["--debug", "--nightmode"]),
+    "no_deblur": ("img.nef", "img.nef.xmp", ["--no_deblur"]),
+    "copy_num": ("img.nef", "img_02.nef.xmp", ["--copy_num", "2"]),
+    "no_sidecar": ("img.nef", None, []),
+}
+
+
+def _run(tmp_path, side, case, checkpoint):
+    fname, sidecar, extra = CASES[case]
+    d = tmp_path / side
+    d.mkdir()
+    log = str(d / "tools.jsonl")
+    dt = fixtures.write_darktable(str(d / "darktable-cli"), log, H, W, seed=4)
+    gmic = fixtures.write_gmic(str(d / "gmic"), log)
+    src = d / fname
+    if fname.endswith(".tif"):
+        _tiff(src, seed=2)
+    else:
+        src.write_bytes(b"not really a raw file")
+    if sidecar:
+        (d / sidecar).write_text(SIDECAR)
+    argv = [str(src), "--dt", dt, "-g", gmic, "--model_path", checkpoint] + COMMON + extra
+    cli = jax_cli if side == "jax" else port_cli
+    out = cli.main(argv + (["--device", "cpu"] if side == "port" else []))
+    calls = json.dumps(fixtures.read_log(log)).replace(str(d), "<dir>")
+    return d, out, json.loads(calls)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_darktable_paths_match_jax(tmp_path, monkeypatch, checkpoint, case):
+    seen = _capture(monkeypatch)
+    jd, _, jax_calls = _run(tmp_path, "jax", case, checkpoint)
+    pd, out, port_calls = _run(tmp_path, "port", case, checkpoint)
+    assert port_calls == jax_calls
+    files = sorted(os.listdir(pd))
+    assert files == sorted(os.listdir(jd))
+    if case == "no_sidecar":
+        assert out is None and port_calls == [] and seen == {"jax": [], "port": []}
+        return
+    assert out == pd / "img.jpg" and out.is_file()
+    stages = [c["argv"] for c in port_calls if c["tool"] == "darktable-cli"]
+    if case != "tiff_sidecar":  # stage 1: 32-bit TIFF
+        assert "plugins/imageio/format/tiff/bpp=32" in stages.pop(0)
+    s2 = stages.pop(0)  # stage 2: 16-bit, with the height
+    assert "plugins/imageio/format/tiff/bpp=16" in s2
+    assert s2[s2.index("--height") + 1] == ("120" if case == "raw" else "0")
+    assert not stages
+    if case in ("use_gmic", "no_deblur"):  # the stand-in wrote the 8-bit output
+        assert seen == {"jax": [], "port": []}
+        got = cv2.imread(str(pd / "img.jpg.png"))
+        ref = cv2.imread(str(jd / "img.jpg.png"))
+    else:
+        (ref,), (got,) = seen["jax"], seen["port"]
+    assert got.shape == ref.shape == (H, W, 3) and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    if case == "debug_nightmode":
+        assert {"img_s1.tif", "img_s1_denoised.tiff", "img_s2.tif",
+                "img.nef.s1.xmp", "img.nef.s2.xmp"} <= set(files)
+        for k in (1, 2):
+            _assert_same_tree(ET.parse(pd / f"img.nef.s{k}.xmp").getroot(),
+                              ET.parse(jd / f"img.nef.s{k}.xmp").getroot())
+        # both CLIs write the denoised TIFF through fp16 (denoise_image's
+        # .tiff output at default precision): one fp16 ulp at the value (at
+        # most 2^-10 of it), plus the 16-bit rounding of stage 2
+        for name, lsb in (("img_s1_denoised.tiff", 0), ("img_s2.tif", 1)):
+            a = cv2.imread(str(pd / name), cv2.IMREAD_UNCHANGED).astype(np.float64)
+            b = cv2.imread(str(jd / name), cv2.IMREAD_UNCHANGED).astype(np.float64)
+            bound = 2.0 ** -10 * np.maximum(np.abs(a), np.abs(b)) + 2.0 ** -24 + lsb
+            assert (np.abs(a - b) <= bound).all(), name
+
+
+def test_missing_checkpoint_raises_naming_it(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    tif = _tiff(tmp_path / "img.tif")
+    with pytest.raises(FileNotFoundError) as e:
+        port_cli.main([str(tif), "--tiff-input", "--device", "cpu"])
+    assert os.path.join("models", "nind", "generator_650.pt") in str(e.value)
+    assert "https://" in str(e.value)
+    assert not (tmp_path / "img.jpg").exists()
+
+
+def test_raw_without_darktable_raises(tmp_path, checkpoint):
+    (tmp_path / "img.nef").write_bytes(b"raw")
+    (tmp_path / "img.nef.xmp").write_text(SIDECAR)
+    with pytest.raises(FileNotFoundError, match="darktable-cli"):
+        port_cli.main([str(tmp_path / "img.nef"), "--dt", str(tmp_path / "none"),
+                       "--model_path", checkpoint, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("cli,argv,item", [
+    ("denoise", ["--rl-psf", "gmic_fast"], "item 4"),
+    ("denoise", ["--compute_dtype", "int8"], "item 5"),
+    ("denoise_image", ["--compute_dtype", "int8_static"], "item 5"),
+    ("denoise_image", ["--devices", "2"], "item 9"),
+    ("denoise_image", ["--trace_dir", "trace"], "item 10"),
+    ("denoise_image", ["--network", "UNet"], "item 7"),
+])
+def test_flags_not_ported_raise(tmp_path, checkpoint, cli, argv, item):
+    tif = _tiff(tmp_path / "img.tif")
+    with pytest.raises(NotImplementedError, match=item):
+        if cli == "denoise":
+            port_cli.main([str(tif), "--tiff-input", "--model_path", checkpoint,
+                           "--device", "cpu"] + argv)
+        else:
+            port_image_cli.main(["-i", str(tif), "-o", str(tmp_path / "o.tif"),
+                                 "--network", "UtNet", "--model_path", checkpoint,
+                                 "--device", "cpu"] + argv)
+    assert sorted(os.listdir(tmp_path)) == ["img.tif"]
+
+
+def test_directory_loads_once_and_matches_single_runs(tmp_path, monkeypatch, checkpoint):
+    src = tmp_path / "in"
+    src.mkdir()
+    for i, hw in enumerate([(H, W), (H, W), (40, 44), (H, W)]):  # f2: tiny path
+        _tiff(src / f"f{i}.tif", seed=10 + i, hw=hw)
+    (src / "notes.txt").write_text("skipped")
+    loads, engines = [], []
+    load = port_cli.params_io.load_generator
+    monkeypatch.setattr(port_cli.params_io, "load_generator",
+                        lambda *a, **kw: loads.append(a) or load(*a, **kw))
+
+    class Counted(port_engine.TileEngine):
+        def __init__(self, *a, **kw):
+            engines.append((a[1], a[2]))
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(port_engine, "TileEngine", Counted)
+    seen = _capture(monkeypatch)["port"]
+    argv = ["--tiff-input", "--model_path", checkpoint, "--device", "cpu"] + COMMON
+    (tmp_path / "dir").mkdir()
+    outs = port_cli.main([str(src), "-o", str(tmp_path / "dir")] + argv)
+    assert [o.name for o in outs] == ["f0.jpg", "f1.jpg", "f2.jpg", "f3.jpg"]
+    assert len(loads) == 1
+    assert engines == [(104, 88), (104, 88)]  # the tiled engine, the tiny one
+    batch = list(seen)
+    for i in range(4):
+        (tmp_path / f"one{i}").mkdir()
+        port_cli.main([str(src / f"f{i}.tif"), "-o", str(tmp_path / f"one{i}")] + argv)
+    assert len(loads) == 5
+    for got, ref in zip(batch, seen[4:]):
+        np.testing.assert_array_equal(got, ref)
