@@ -67,6 +67,24 @@ limit as nvidia-smi reports them):
    against its plain version (4 bf16 ulps), timed beside its bound, its
    plain version and cuDNN's level 1.
 
+12. qconv: P1 (the int8 conv) against its plain version at every int8 conv
+   shape of the funit-64 forward on 8 x 504^2 tiles (int32 sums, fp32 and
+   bf16 dequantized outputs, per-sample and scalar scales, the level-4
+   parity scales), bit-equal on the batch's first samples; per shape its
+   time, bound, plain time, ``torch._int_mm`` over an im2col and cuDNN's
+   bf16 conv; what torch on the card offers for an int8 conv;
+13. deriche: P2 (the Deriche IIR) bit-equal to its plain version at
+   (3, 2000, 3000) and (24, 480, 480), sigma 1 and 10, along each axis;
+14. int8: ``denoise_cli --tiff-input`` on the 6 MP TIFF with
+   ``--compute_dtype int8`` and ``int8_static`` (P1, K2, K1 launches, wall,
+   device time, PSNR against a float32 run at or above 45 / 42 dB), and
+   the forward alone per batch of 8 x 504^2 against bf16;
+15. int8_serve: a server window in int8_static, each response bit-equal
+   to the engine + RL run of its request, no coalesced engine group;
+16. gmic_fast_cli and rl_dt: ``denoise_cli --rl-psf gmic_fast`` at 6 MP
+   (40 P2 launches, no K1) and RL with dt 0.5 (20 K3 launches, no K1)
+   bit-equal to the plain iteration.
+
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
 a missing GPU or a failed build exits non-zero without that last line.
@@ -90,11 +108,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # the product CLIs' phases (cli_plugin, cli_raw, cli_dir, whole_image): a
 # 6 MP image through UtNet at the product width
 HW, FUNIT = (2000, 3000), 64
+# the int8 and RL-variant phases' device, and the batch and tile edge of
+# the int8 forward's timing (a CPU rehearsal makes these small)
+DEV, FWD = "cuda", (8, 504)
 STAGE = re.compile(r"([\w+]+): ([0-9.]+)s/(\d+)x")  # one stage of a -v split
 
 
@@ -494,14 +515,11 @@ def phase_gauss_blur(torch, card):
     return product
 
 
-def phase_end_to_end(torch, card, tmp):
+def phase_end_to_end(torch, card, tmp, kernel_mods):
     import cv2
     import numpy as np
 
     from nind_denoise_tpu_torch.core.tiles import TilePlan
-    from nind_denoise_tpu_torch.ops import enc1 as E
-    from nind_denoise_tpu_torch.ops import gauss_blur as G
-    from nind_denoise_tpu_torch.ops import rl_fused as R
     from nind_denoise_tpu_torch.pipeline import denoise_cli
     from nind_denoise_tpu_torch.tools import fixtures
 
@@ -517,12 +535,9 @@ def phase_end_to_end(torch, card, tmp):
             "--compute_dtype", "bfloat16", "--batch_size", "8"]
     denoise_cli.main(argv)  # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
-    E.launches = R.launches = G.launches = 0
     t0 = time.time()
-    out = denoise_cli.main(argv)
-    torch.cuda.synchronize()
+    out, launches = counted(torch, kernel_mods, lambda: denoise_cli.main(argv))
     wall = time.time() - t0
-    launches = {"enc1": E.launches, "rl_iter": R.launches, "gauss_blur": G.launches}
     plan = TilePlan(2000, 3000, 504, 480, 6)
     batches = (plan.ipervl + 1) * math.ceil((plan.iperhl + 1) / 8)
     check(launches["enc1"] == batches,
@@ -1166,6 +1181,466 @@ def phase_whole_image(torch, card, tmp, kernel_mods, ckpt, tif):
     return launches
 
 
+# -- P1 (int8 conv) and P2 (Deriche) -------------------------------------------
+
+def p1_shapes(cs: int = 504, f: int = 64):
+    """Every int8 conv of the funit-``f`` forward on cs x cs tiles, in the
+    forward's order: (site, input edge, cin, cout, k, pads, lhs dilation).
+    The first, enc1's c1, runs in int8_static only."""
+    V, FU, UP = (0, 0, 0, 0), (2, 2, 2, 2), (3, 3, 3, 3)
+    shapes = [("enc1_c1fq", cs + 2, f, f, 3, V, 1)]
+    skips = [(cs, f)]  # l1
+    h, c = cs // 2, f
+    for name in ("convs2", "convs3", "convs4"):
+        shapes += [(f"{name}_c0q", h, c, 2 * c, 3, V, 1),
+                   (f"{name}_c1q", h - 2, 2 * c, 2 * c, 3, V, 1)]
+        c *= 2
+        skips.append((h - 4, c))
+        h = (h - 4) // 2
+    shapes += [("bottom_c0q", h, c, 2 * c, 3, V, 1),
+               ("bottom_c1q", h - 2, 2 * c, 2 * c, 3, FU, 1)]
+    c *= 2
+    for lvl, (hs, cskip) in enumerate(reversed(skips)):
+        names = ("K3fq", "w3b4q", "dec4_c1q") if lvl == 3 else \
+            (f"K{lvl}q", f"skip{lvl}q", f"dec{lvl}_c1q")
+        co = c // 2
+        shapes += [(names[0], h, c, co, 4, UP, 2), (names[1], hs, cskip, co, 3, FU, 1),
+                   (names[2], hs + 2, co, co, 3, FU, 1)]
+        h, c = hs + 4, co
+    return shapes
+
+
+def p1_macs(n, ho, wo, cin, cout, k, dil, pad):
+    """MACs of one P1 conv without the dilation's zeros: with lhs dilation
+    2 each output pixel reads ceil or floor of k/2 taps along each axis."""
+    if dil == 1:
+        return n * ho * wo * cout * cin * k * k
+    total = 0
+    for py in (0, 1):
+        for px in (0, 1):
+            ny, nx = (ho - py + 1) // 2, (wo - px + 1) // 2
+            ty = len([a for a in range(k) if (py + a - pad) % 2 == 0])
+            tx = len([b for b in range(k) if (px + b - pad) % 2 == 0])
+            total += ny * nx * ty * tx
+    return n * total * cout * cin
+
+
+def torch_int8_conv_offer(torch):
+    """What torch on the card offers for an int8 convolution: each probe
+    and its outcome (a yardstick survey; the port calls none of them)."""
+    import torch.nn.functional as F
+
+    x = torch.ones(1, 32, 8, 8, dtype=torch.int8, device=DEV)
+    w = torch.ones(32, 32, 3, 3, dtype=torch.int8, device=DEV)
+
+    def quantized_conv():
+        from torch.ao.nn.quantized import functional as qF
+
+        q = lambda t: torch.quantize_per_tensor(t.float(), 0.1, 0, torch.qint8)
+        return qF.conv2d(q(x), q(w), torch.zeros(32, device=DEV), scale=1.0,
+                         zero_point=0)
+
+    probes = {}
+    for name, fn in (("F.conv2d(int8, int8)", lambda: F.conv2d(x, w)),
+                     ("torch._int_mm(int8 (32, 64), int8 (64, 32))", lambda: torch._int_mm(
+                         torch.ones(32, 64, dtype=torch.int8, device=DEV),
+                         torch.ones(64, 32, dtype=torch.int8, device=DEV))),
+                     ("torch.ao.nn.quantized.functional.conv2d (qint8)", quantized_conv)):
+        try:
+            out = fn()
+            probes[name] = f"ok ({getattr(out, 'dtype', type(out).__name__)})"
+        except Exception as e:  # a survey of what exists, not a port path
+            probes[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return probes
+
+
+def int_mm_library(torch, xq, wk, pads, dil, ho, wo):
+    """The int32 conv as ``torch._int_mm`` over an im2col of the same int8
+    input (built once, outside the timing): (run, or the error text)."""
+    import torch.nn.functional as F
+
+    n, h, w, c = xq.shape
+    cout, k = wk.shape[0], wk.shape[1]
+    x = xq
+    if dil == 2:
+        x = xq.new_zeros((n, 2 * h - 1, 2 * w - 1, c))
+        x[:, ::2, ::2] = xq
+    pt, pb, pl, pr = pads
+    x = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb)).permute(0, 2, 3, 1).contiguous()
+    hp, wp = x.shape[1], x.shape[2]
+    cols = x.as_strided((n, ho, wo, k, k, c), (hp * wp * c, wp * c, c, wp * c, c, 1)) \
+        .reshape(n * ho * wo, k * k * c)
+    wmat = wk.permute(1, 2, 3, 0).reshape(k * k * c, cout).contiguous()
+    try:
+        torch._int_mm(cols, wmat)
+    except Exception as e:  # torch on the card may lack it for these shapes
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return (lambda: torch._int_mm(cols, wmat)), (cols, wmat)
+
+
+def phase_qconv(torch, card, batch: int = 8, cs: int = 504, f: int = 64,
+                full_batch_plain_macs: float = 2e10):
+    """P1 against its plain version at every int8 conv shape of the
+    funit-``f`` forward on a batch of ``batch`` cs x cs tiles: the int32
+    sums, fp32 without bias (per-sample scales) and bf16 with bias (a
+    scalar scale), the level-4 composed conv with its parity scales; each
+    bit-equal on the first samples of the batch (all of them where the
+    plain float64 conv is cheap). Per shape: P1's warm time (bf16 out,
+    bias), its bound, the plain version's, ``torch._int_mm`` over an
+    im2col of the same input, and cuDNN's bf16 conv of the same shape."""
+    import torch.nn.functional as F
+
+    from nind_denoise_tpu_torch.ops import qconv as Q
+
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    rows, totals = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                            cudnn_bf16_ms=0.0)
+    for site, h, cin, cout, k, pads, dil in p1_shapes(cs, f):
+        ho, wo = Q.out_hw(h, h, k, k, pads, dil)
+        xq = torch.randint(-127, 128, (batch, h, h, cin), dtype=torch.int8,
+                           device=DEV, generator=gen)
+        wk = torch.randint(-127, 128, (cout, k, k, cin), dtype=torch.int8,
+                           device=DEV, generator=gen)
+        sx = torch.rand(batch, device=DEV, generator=gen) * 1e-2 + 1e-3
+        sx1 = sx[:1].clone()
+        sw = torch.rand((2, cout) if site == "K3fq" else (cout,), device=DEV,
+                        generator=gen) * 1e-3 + 1e-4
+        bias = torch.rand(cout, device=DEV, generator=gen) - 0.5
+        dense = ho * wo * cout * cin * k * k * (4 if dil == 2 else 1)
+        m = max(1, min(batch, int(full_batch_plain_macs // dense)))
+        acc = Q.conv_int8(xq, wk, pads, dil, out_dtype=torch.int32)
+        y32 = Q.conv_int8(xq, wk, pads, dil, sx=sx, sw=sw, out_dtype=torch.float32)
+        y16 = Q.conv_int8(xq, wk, pads, dil, sx=sx1, sw=sw, bias=bias,
+                          out_dtype=torch.bfloat16)
+        ref = Q.conv_i32_reference(xq[:m], wk, pads, dil)
+        r32 = Q.dequant_reference(ref, sx[:m], sw)
+        r16 = Q.dequant_reference(ref, sx1, sw, bias, torch.bfloat16)
+        torch.cuda.synchronize()
+        check(acc.shape == (batch, ho, wo, cout), f"qconv {site}: shape {tuple(acc.shape)}")
+        eq = dict(int32=bool(torch.equal(acc[:m], ref)),
+                  f32=bool(torch.equal(y32[:m], r32)),
+                  bf16=bool(torch.equal(y16[:m], r16)))
+        check(all(eq.values()), f"qconv {site} ({batch},{h},{h},{cin})->{cout}: "
+                                f"not bit-equal {eq}, max int32 diff "
+                                f"{(acc[:m] - ref).abs().max().item()}")
+        macs = p1_macs(batch, ho, wo, cin, cout, k, dil, pads[0])
+        nbytes = xq.numel() + wk.numel() + batch * ho * wo * cout * 2 + 4 * (3 * cout + batch)
+        bms, by = bound_ms(nbytes, 2.0 * macs, "int8")
+        reps = 5 if macs > 5e10 else 20
+        ms = time_ms(torch, lambda: Q.conv_int8(xq, wk, pads, dil, sx=sx1, sw=sw, bias=bias,
+                                                 out_dtype=torch.bfloat16), reps)
+        plain = time_ms(torch, lambda: Q.conv_int8_reference(
+            xq[:m], wk, pads, dil, sx1, sw, bias, torch.bfloat16), 1)
+        lib_run, lib_info = int_mm_library(torch, xq, wk, pads, dil, ho, wo)
+        rec = dict(site=site, input=[batch, h, h, cin], cout=cout, k=k, pads=list(pads),
+                   lhs_dilation=dil, output=[batch, ho, wo, cout], macs=macs,
+                   checked_samples=m, bit_equal=eq, ms=ms, bound_ms=bms, bound_by=by,
+                   plain_ms=plain, plain_samples=m)
+        if lib_run is None:
+            rec["int_mm_ms"], rec["int_mm_error"] = None, lib_info
+        else:
+            rec["int_mm_ms"] = time_ms(torch, lib_run, reps)
+            rec["int_mm_equal"] = bool(torch.equal(
+                lib_run().reshape(batch, ho, wo, cout), acc))
+            del lib_info
+        # cuDNN's bf16 conv of the same shape (channels_last), a yardstick
+        xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        if dil == 2:
+            wb = wk.to(torch.bfloat16).permute(3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last)  # (cin, cout, k, k)
+            cud = lambda: F.conv_transpose2d(xb, wb, stride=2)
+        else:
+            wb = wk.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            cud = lambda: F.conv2d(xb, wb, padding=pads[0])
+        check(tuple(cud().shape) == (batch, cout, ho, wo), f"qconv {site}: cuDNN shape")
+        rec["cudnn_bf16_ms"] = time_ms(torch, cud, reps)
+        emit(card, phase="qconv", **rec)
+        rows.append(rec)
+        for key in totals:
+            totals[key] += rec[key if key != "library_ms" else "int_mm_ms"] or 0.0
+        del xq, wk, acc, y32, y16, ref, r32, r16, xb, wb
+        torch.cuda.empty_cache()
+    heavy = sorted(rows, key=lambda r: -r["ms"])[:5]
+    emit(card, phase="qconv_summary", batch=batch, cs=cs, funit=f, convs=len(rows),
+         offer=torch_int8_conv_offer(torch),
+         heaviest=[dict(site=r["site"], ms=r["ms"], bound_ms=r["bound_ms"],
+                        int_mm_ms=r["int_mm_ms"], cudnn_bf16_ms=r["cudnn_bf16_ms"])
+                   for r in heavy], **{f"sum_{k}": v for k, v in totals.items()})
+    return dict(max_abs_err=0.0, ms=totals["ms"], plain_ms=totals["plain_ms"],
+                bound_ms=totals["bound_ms"], bound_by="operations",
+                library_ms=totals["library_ms"] or None, shapes=len(rows))
+
+
+def phase_deriche(torch, card):
+    """P2 against its plain version, bit-equal, at the CLI's (3, 2000,
+    3000) and a server group's (24, 480, 480) planes, sigma 1 and 10,
+    along each axis; its warm time, the plain loop's, and the byte bound
+    (8 bytes an element). No single PyTorch call computes a recursive
+    filter, so there is no library time."""
+    from nind_denoise_tpu_torch.ops import deriche as D
+
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    out = {}
+    for shape in ((3, 2000, 3000), (24, 480, 480)):
+        x = torch.rand(shape, device=DEV, generator=gen)
+        for sigma in (1.0, 10.0):
+            for axis in (1, 2):
+                y = D.deriche_axis(x, sigma, axis)
+                ref = D.deriche_axis_reference(x, sigma, axis)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                check(torch.equal(y, ref),
+                      f"deriche {shape} sigma {sigma} axis {axis}: max err {err}")
+                bms, by = bound_ms(8.0 * x.numel(), 0.0, "float32")
+                rec = dict(shape=list(shape), sigma=sigma, axis=axis, max_abs_err=err,
+                           ms=time_ms(torch, lambda: D.deriche_axis(x, sigma, axis), 10),
+                           plain_ms=time_ms(torch, lambda: D.deriche_axis_reference(
+                               x, sigma, axis), 1),
+                           bound_ms=bms, bound_by=by, library_ms=None)
+                emit(card, phase="deriche", **rec)
+                out[(shape, sigma, axis)] = rec
+    # the kernels line: one 6 MP blur at sigma 1 (both axes), as RL runs it
+    h = out[((3, 2000, 3000), 1.0, 1)]
+    w = out[((3, 2000, 3000), 1.0, 2)]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in out.values()),
+                ms=(h["ms"] + w["ms"]) / 2, plain_ms=(h["plain_ms"] + w["plain_ms"]) / 2,
+                bound_ms=h["bound_ms"], bound_by="bytes", library_ms=None)
+
+
+def psnr_u8(a, b) -> float:
+    import numpy as np
+
+    d = a.astype(np.float64) - b.astype(np.float64)
+    return float(10 * np.log10(255.0 ** 2 / max((d ** 2).mean(), 1e-20)))
+
+
+def phase_int8(torch, card, tmp, kernel_mods, tif, ckpt):
+    """``denoise_cli --tiff-input`` on the 6 MP TIFF with ``--compute_dtype
+    int8`` and ``int8_static`` (bf16 tile I/O), each against a float32 run
+    (no TF32) of the same image in this process: P1, K2 and K1 launches
+    (a forward launches P1 20 times, 21 in int8_static, whose engine build
+    and per-image calibration add an observing forward of 20 each, as in
+    the JAX CLI's serial path), wall, device time under
+    the profiler, and the PSNR of the pre-encode uint8 against the float32
+    run, held at the engine floors of tests/test_qconv.py (45 / 42 dB).
+    Then the forward alone on a batch of 8 x 504^2 tiles, int8 and
+    int8_static against bf16. Returns the launch counts by run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.models.utnet import UtNet
+    from nind_denoise_tpu_torch.models.utnet_int8 import QuantUtNet
+    from nind_denoise_tpu_torch.ops.qconv import calib_tiles
+    from nind_denoise_tpu_torch.pipeline import denoise_cli
+
+    outdir = os.path.join(tmp, "int8")
+    os.makedirs(outdir)
+    base = [tif, "--tiff-input", "--model_path", ckpt, "-o", outdir, "--batch_size", "8"]
+    _, (ref,), _ = cli_run(denoise_cli, base + ["--compute_dtype", "float32",
+                                                "--precision", "float32"])
+    batches = cli_batches(*HW)
+    by_run = {}
+    for mode, floor in (("int8", 45.0), ("int8_static", 42.0)):
+        argv = base + ["--compute_dtype", mode]
+        cli_run(denoise_cli, argv)  # cold: cuDNN picks its algorithms
+        t0 = time.time()
+        (_, (got,), _), launches = counted(torch, kernel_mods,
+                                           lambda: cli_run(denoise_cli, argv))
+        wall = time.time() - t0
+        per_fwd = 21 if mode == "int8_static" else 20
+        # int8_static observes two calibration forwards of 20 convs: the
+        # engine's build (the synthetic set) and the image's own crops
+        calib = 40 if mode == "int8_static" else 0
+        want = dict(qconv=per_fwd * batches + calib, rl_iter=10, gauss_blur=0, deriche=0,
+                    enc1=batches if mode == "int8" else 0)
+        check(all(launches[k] == v for k, v in want.items()),
+              f"int8 cli {mode}: launches {launches}, expected {want}")
+        db = psnr_u8(got, ref)
+        check(db >= floor, f"int8 cli {mode}: PSNR {db:.2f} dB against float32 < {floor}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cli_run(denoise_cli, argv)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        emit(card, phase="int8_cli", compute_dtype=mode, shape=[*HW, 3], wall_s=wall,
+             launches=launches, expected_launches=want, psnr_db_vs_float32=db,
+             floor_db=floor, device_ms=device_ms, device_busy_share=device_ms / 1e3 / wall,
+             top_device_ms={e.key[:90]: e.self_device_time_total / 1e3 for e in top})
+        by_run[f"int8_cli_{mode}"] = launches
+
+    # the forward alone, one batch of 8 x 504^2 bf16 tiles
+    model = params_io.load_generator(ckpt, "PReLU")
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    x = torch.rand(FWD[0], 3, FWD[1], FWD[1], device=DEV, generator=gen).to(torch.bfloat16)
+    fwd = {}
+    with torch.inference_mode():
+        bf16 = UtNet(FUNIT)
+        bf16.load_state_dict(model.state_dict())
+        bf16 = bf16.to(DEV, torch.bfloat16).eval()
+        fwd["bfloat16"] = time_ms(torch, lambda: bf16(x), 5)
+        for mode in ("int8", "int8_static"):
+            q = QuantUtNet(model, static=mode == "int8_static", device=DEV)
+            if q.static:
+                q.calibrate(calib_tiles())
+            fwd[mode] = time_ms(torch, lambda: q(x), 5)
+    emit(card, phase="int8_forward", batch=[FWD[0], FWD[1], FWD[1]], funit=FUNIT, ms=fwd,
+         int8_over_bf16=fwd["int8"] / fwd["bfloat16"],
+         int8_static_over_bf16=fwd["int8_static"] / fwd["bfloat16"])
+    return by_run
+
+
+def phase_int8_serve(torch, card, tmp, kernel_mods, ckpt):
+    """A short server window with ``--compute_dtype int8_static``: one 6 MP
+    request, then eight 480 x 480 requests queued at once behind the
+    parked dispatcher. Each response must equal the engine + RL run of the
+    same request (which recalibrates on its image first, as the service
+    does), and no group may coalesce in the engine. Returns the window's
+    launch counts."""
+    import threading
+    import urllib.request
+
+    import cv2
+    import numpy as np
+
+    from nind_denoise_tpu_torch.engine import tile_engine
+    from nind_denoise_tpu_torch.ops import rl_deblur as RL
+    from nind_denoise_tpu_torch.pipeline import serve as S
+
+    svc = S.DenoiseService("UtNet", ckpt, cs=504, ucs=480, batch_size=8,
+                           compute_dtype="int8_static")
+    httpd = S.serve(svc, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    coalesced = []
+    many = tile_engine.TileEngine.denoise_many
+
+    def spy(self, *a, **kw):
+        coalesced.append(len(a[0]))
+        return many(self, *a, **kw)
+
+    tile_engine.TileEngine.denoise_many = spy
+    rng = np.random.default_rng(24)
+    q = "output=png&rl=1&sigma=1&iterations=10"
+
+    def png(img):
+        ok, buf = cv2.imencode(".png", img[..., ::-1])
+        check(ok, "PNG encode failed")
+        return buf.tobytes()
+
+    def post(data):
+        req = urllib.request.Request(f"{base}/denoise?{q}", data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    def decode(body):
+        return cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_UNCHANGED)[..., ::-1]
+
+    def direct(raw):
+        out = svc._adaptive.denoise_raw(raw, 65535.0, out_dtype="device")
+        return RL.rl_to_u8_device(out, 1.0, 10).cpu().numpy()
+
+    try:
+        big = rng.integers(0, 65536, (*HW, 3), dtype=np.uint16)
+        smalls = [rng.integers(0, 65536, (480, 480, 3), dtype=np.uint16) for _ in range(8)]
+
+        def window():
+            t0 = time.time()
+            first = post(png(big))
+            lat_big = time.time() - t0
+            release, gate = threading.Event(), threading.Event()
+            blocker = threading.Thread(
+                target=lambda: svc.submit(lambda: gate.set() or release.wait(120)))
+            blocker.start()
+            check(gate.wait(60), "dispatcher did not park")
+            bodies = [None] * 8
+            hits = [threading.Thread(target=lambda i=i: bodies.__setitem__(
+                i, post(png(smalls[i])))) for i in range(8)]
+            for t in hits:
+                t.start()
+            deadline = time.time() + 60
+            while svc._q.qsize() < 8 and time.time() < deadline:
+                time.sleep(0.01)
+            t0 = time.time()
+            release.set()
+            for t in hits + [blocker]:
+                t.join(300)
+            return first, bodies, lat_big, time.time() - t0
+
+        (first, bodies, lat_big, lat_burst), launches = counted(torch, kernel_mods, window)
+        stats = svc.snapshot_stats()
+        check(np.array_equal(decode(first), direct(big)),
+              "int8_static serve: 6 MP response differs from the engine + RL run")
+        for i, body in enumerate(bodies):
+            check(body is not None and np.array_equal(decode(body), direct(smalls[i])),
+                  f"int8_static serve: 480^2 response {i} differs from the engine + RL run")
+        check(not coalesced, f"int8_static serve: engine groups coalesced {coalesced}")
+        emit(card, phase="int8_serve", compute_dtype="int8_static", latency_s_6mp=lat_big,
+             burst_of_8_480_s=lat_burst, launches=launches,
+             dispatcher_group_sizes=stats["group_sizes"], engine_coalesced_groups=0,
+             responses_equal_to_engine_plus_rl=True)
+    finally:
+        tile_engine.TileEngine.denoise_many = many
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+    return launches
+
+
+def phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt):
+    """RL's other variants at 6 MP: ``denoise_cli --rl-psf gmic_fast``
+    (sigma 1 x 10: 40 P2 launches, no K1), then RL with dt 0.5 at sigma 1
+    through ``rl_deblur_to_uint8`` (20 K3 launches, no K1), held bit-equal
+    to the same iteration with K3 swapped for its plain version. Returns
+    the launch counts by run."""
+    import numpy as np
+
+    from nind_denoise_tpu_torch.ops import gauss_blur as G
+    from nind_denoise_tpu_torch.ops import rl_deblur as RL
+    from nind_denoise_tpu_torch.ops import rl_fused
+    from nind_denoise_tpu_torch.pipeline import denoise_cli
+
+    outdir = os.path.join(tmp, "gmic_fast")
+    os.makedirs(outdir)
+    argv = [tif, "--tiff-input", "--model_path", ckpt, "-o", outdir, "--rl-psf", "gmic_fast"]
+    cli_run(denoise_cli, argv)  # cold
+    t0 = time.time()
+    (out, (u8,), _), gmic = counted(torch, kernel_mods, lambda: cli_run(denoise_cli, argv))
+    wall = time.time() - t0
+    check(gmic["deriche"] == 40 and gmic["rl_iter"] == 0 and gmic["gauss_blur"] == 0
+          and gmic["enc1"] == cli_batches(*HW), f"gmic_fast cli: launches {gmic}")
+    check(u8.shape == (*HW, 3), "gmic_fast cli: bad output")
+    emit(card, phase="gmic_fast_cli", shape=[*HW, 3], sigma=1, iterations=10, wall_s=wall,
+         launches=gmic, output=os.path.basename(str(out)))
+
+    img = np.random.default_rng(25).random((*HW, 3), dtype=np.float32)
+    x = torch.from_numpy(img).to(DEV)
+    u8_k, dt_launches = counted(torch, kernel_mods,
+                                lambda: RL.rl_deblur_to_uint8(img, 1.0, 10, 0.5))
+    check(dt_launches["gauss_blur"] == 20 and dt_launches["rl_iter"] == 0
+          and dt_launches["deriche"] == 0, f"rl dt 0.5: launches {dt_launches}")
+    u_k = RL.rl_deblur(x, 1.0, 10, 0.5)
+    blur = G.blur_planes
+    G.blur_planes = lambda t, taps, out=None: rl_fused.blur(t, taps.tolist())
+    try:
+        u_p = RL.rl_deblur(x, 1.0, 10, 0.5)
+        u8_p = RL.rl_deblur_to_uint8(img, 1.0, 10, 0.5)
+    finally:
+        G.blur_planes = blur
+    torch.cuda.synchronize()
+    err = (u_k - u_p).abs().max().item()
+    check(torch.equal(u_k, u_p) and np.array_equal(u8_k, u8_p),
+          f"rl dt 0.5: K3 route differs from the plain iteration (max err {err})")
+    t_k = time_ms(torch, lambda: RL.rl_deblur(x, 1.0, 10, 0.5), 3)
+    emit(card, phase="rl_dt", shape=[*HW, 3], sigma=1, iterations=10, dt=0.5,
+         launches=dt_launches, bit_equal_to_plain=True, max_abs_err=err, ms_10_iterations=t_k)
+    return {"gmic_fast_cli": gmic, "rl_dt": dt_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1182,14 +1657,17 @@ def main() -> int:
     _build.build_all()
     emit(card, phase="build", seconds=time.time() - t0, sources=_build.sources())
 
-    from nind_denoise_tpu_torch.ops import enc1, gauss_blur, rl_fused
+    from nind_denoise_tpu_torch.ops import deriche, enc1, gauss_blur, qconv, rl_fused
 
-    kernel_mods = {"enc1": enc1, "rl_iter": rl_fused, "gauss_blur": gauss_blur}
+    kernel_mods = {"enc1": enc1, "rl_iter": rl_fused, "gauss_blur": gauss_blur,
+                   "qconv": qconv, "deriche": deriche}
     enc1_rec = phase_enc1(torch, card)
     rl_rec = phase_rl(torch, card)
     blur_rec = phase_gauss_blur(torch, card)
+    qconv_rec = phase_qconv(torch, card)
+    deriche_rec = phase_deriche(torch, card)
     with tempfile.TemporaryDirectory() as tmp:
-        by_path = {"denoise_cli": phase_end_to_end(torch, card, tmp)}
+        by_path = {"denoise_cli": phase_end_to_end(torch, card, tmp, kernel_mods)}
         by_path["serve"], serve_inputs, model = phase_serve(torch, card, tmp, kernel_mods)
         # phase_end_to_end's 6 MP TIFF and checkpoint
         tif, ckpt = os.path.join(tmp, "img.tif"), os.path.join(tmp, "generator_1.npz")
@@ -1197,6 +1675,9 @@ def main() -> int:
         by_path["cli_raw"] = phase_cli_raw(torch, card, tmp, kernel_mods, ckpt)
         by_path["cli_dir"] = phase_cli_dir(torch, card, tmp, kernel_mods, ckpt)
         by_path["whole_image"] = phase_whole_image(torch, card, tmp, kernel_mods, ckpt, tif)
+        by_path.update(phase_int8(torch, card, tmp, kernel_mods, tif, ckpt))
+        by_path["int8_static_serve"] = phase_int8_serve(torch, card, tmp, kernel_mods, ckpt)
+        by_path.update(phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt))
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):
@@ -1215,6 +1696,11 @@ def main() -> int:
             "nind_denoise_tpu/ops/pallas_blur.py:621", rl_rec),
         row("gauss_blur", "nind_denoise_tpu_torch/csrc/gauss_blur.cu",
             "nind_denoise_tpu/ops/pallas_blur.py:217", blur_rec),
+        # the port's own kernels: no Pallas counterpart, they replace XLA ops
+        row("qconv", "nind_denoise_tpu_torch/csrc/qconv.cu",
+            "nind_denoise_tpu/ops/qconv.py:227 (XLA int8 conv, no Pallas kernel)", qconv_rec),
+        row("deriche", "nind_denoise_tpu_torch/csrc/deriche.cu",
+            "nind_denoise_tpu/ops/rl_deblur.py:132 (lax.scan, no Pallas kernel)", deriche_rec),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

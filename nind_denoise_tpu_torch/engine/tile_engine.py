@@ -22,6 +22,11 @@ canvas is the exact grid and the last batch is short; the output is the
 same). fp32 input in bf16 mode is cast to fp16 on the host before the
 upload, as the JAX engine does (it halves the upload; <= 5e-4 relative
 error, below bf16's own rounding).
+
+The int8 compute dtypes (``int8``, ``int8_static``) run the quantized
+forward of ``models/utnet_int8.QuantUtNet`` with bf16 tile I/O;
+``recalibrate_int8`` re-derives an ``int8_static`` engine's activation
+scales on crops of the image it is about to denoise.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ from ..utils.device import resolve_device
 from . import device_stitch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the tile I/O dtype of each compute dtype: the int8 modes quantize inside
+# the forward, and the normalization, feather masks and canvas stay bf16
+_IO_DTYPES = {**_DTYPES, "int8": torch.bfloat16, "int8_static": torch.bfloat16}
 
 
 @contextlib.contextmanager
@@ -99,8 +107,8 @@ class TileEngine:
                  compute_dtype: str = "bfloat16", precision: str = "default",
                  max_subpixels: Optional[int] = None, size_check=None,
                  device=None, debug_dir: Optional[str] = None):
-        if compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
+        if compute_dtype not in _IO_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {list(_IO_DTYPES)}")
         if precision not in ("default", "float32"):
             raise ValueError("precision must be 'default' or 'float32'")
         self.apply_fn = apply_fn
@@ -108,13 +116,25 @@ class TileEngine:
         self.cs, self.ucs, self.ol = cs, ucs, ol
         self.pad = (cs - ucs) // 2
         self.batch_size = batch_size
-        self.compute_dtype = _DTYPES[compute_dtype]
+        self.compute_dtype = _IO_DTYPES[compute_dtype]
         self.precision = precision
         # fp32 with precision='float32' is JAX's "highest": no TF32
         self.allow_tf32 = not (compute_dtype == "float32" and precision == "float32")
         self.max_subpixels = max_subpixels
         self.size_check = size_check
         self.debug_dir = debug_dir  # dump noisy/denoised tiles per row (slow)
+
+    def recalibrate_int8(self, img_hwc: np.ndarray, scale: float = 1.0) -> bool:
+        """``int8_static`` engines: re-derive the static activation scales
+        on crops of this image (``ops/qconv.calib_from_image``; only the
+        crops are divided by ``scale``). Returns False, doing nothing, for
+        any other engine."""
+        if not getattr(self.apply_fn, "static", False):
+            return False
+        from ..ops.qconv import calib_from_image
+
+        self.apply_fn.recalibrate(calib_from_image(np.asarray(img_hwc), scale=scale))
+        return True
 
     def plan_for(self, height: int, width: int) -> TilePlan:
         return TilePlan(height, width, self.cs, self.ucs, self.ol)
@@ -346,16 +366,27 @@ class TileEngine:
 
 
 def resolve_apply_fn(network: str, model: nn.Module,
-                     compute_dtype: str = "bfloat16", device=None) -> nn.Module:
+                     compute_dtype: str = "bfloat16", device=None,
+                     calib=None) -> nn.Module:
     """The generator forward for an engine: a copy of ``model`` on the
-    device in the compute dtype, in eval mode, without gradients. Only
-    UtNet in bfloat16/float32 is ported."""
+    device in the compute dtype, in eval mode, without gradients; for
+    ``int8`` / ``int8_static`` the quantized forward (``QuantUtNet``),
+    ``int8_static`` calibrated on ``calib`` ((N, s, s, 3) in [0, 1], e.g.
+    ``calib_from_image`` of the input) or, absent one, on the synthetic
+    set ``calib_tiles()``. Only UtNet is ported."""
     if network != "UtNet":
         raise NotImplementedError(f"resolve_apply_fn: {network} is not ported")
-    if compute_dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r} is not ported (bfloat16, float32)")
+    if compute_dtype not in _IO_DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     dev = resolve_device(device)
+    if compute_dtype.startswith("int8"):
+        from ..models.utnet_int8 import QuantUtNet
+        from ..ops.qconv import calib_tiles
+
+        q = QuantUtNet(model, static=compute_dtype == "int8_static", device=dev)
+        if q.static:
+            q.calibrate(calib_tiles() if calib is None else calib)
+        return q
     return copy.deepcopy(model).to(dev, _DTYPES[compute_dtype]).eval() \
         .requires_grad_(False)
 
@@ -371,12 +402,14 @@ def _resolve_tiles(network: str, cs: Optional[int], ucs: Optional[int]):
 
 
 def make_engine(network: str, model: nn.Module, cs: Optional[int] = None,
-                ucs: Optional[int] = None, device=None, **kwargs) -> TileEngine:
-    """TileEngine with per-arch tile defaults and size check; ``kwargs``
-    go to TileEngine."""
+                ucs: Optional[int] = None, device=None, calib=None,
+                **kwargs) -> TileEngine:
+    """TileEngine with per-arch tile defaults and size check; ``calib``
+    goes to ``resolve_apply_fn``, ``kwargs`` to TileEngine."""
     cs, ucs, check = _resolve_tiles(network, cs, ucs)
     apply_fn = resolve_apply_fn(network, model,
-                                kwargs.get("compute_dtype", "bfloat16"), device)
+                                kwargs.get("compute_dtype", "bfloat16"), device,
+                                calib=calib)
     return TileEngine(apply_fn, cs, ucs, size_check=check, device=device, **kwargs)
 
 
@@ -386,8 +419,10 @@ class AdaptiveEngine:
     engine for images below the minimum tiling.
 
     The model is resolved once (one copy on the device in the compute
-    dtype) and every cached engine shares it. ``int8`` compute dtypes are
-    not ported and raise ``NotImplementedError``."""
+    dtype, or one ``QuantUtNet``) and every cached engine shares it. For
+    ``int8_static`` each request recalibrates the static scales on its
+    own image first, and ``denoise_many`` never coalesces: per-image
+    calibration is worth more than batch fill."""
 
     def __init__(self, network: str, model: nn.Module, cs: Optional[int] = None,
                  ucs: Optional[int] = None, batch_size: int = 8,
@@ -396,6 +431,7 @@ class AdaptiveEngine:
         self.cs, self.ucs, self._check = _resolve_tiles(network, cs, ucs)
         self.device = resolve_device(device)
         self._resolved = resolve_apply_fn(network, model, compute_dtype, self.device)
+        self.compute_dtype = compute_dtype
         self._kw = dict(batch_size=batch_size, compute_dtype=compute_dtype,
                         precision=precision, max_subpixels=max_subpixels,
                         size_check=self._check, device=self.device)
@@ -426,21 +462,25 @@ class AdaptiveEngine:
         """Tiling-adaptive denoise from storage-dtype pixels; ``out_dtype``
         as ``TileEngine.denoise_raw`` (incl. 'device')."""
         tile = self._adapt(*raw_hwc.shape[:2])
+        eng = self._tiny_engine() if tile is None else self._engine_for(*tile)
+        eng.recalibrate_int8(raw_hwc, scale)  # int8_static only
         if tile is None:  # below the minimum tiling: pad-to-valid forward
-            return self._tiny_engine().denoise_tiny(raw_hwc, scale, out_dtype=out_dtype)
-        return self._engine_for(*tile).denoise_raw(raw_hwc, scale, out_dtype=out_dtype)
+            return eng.denoise_tiny(raw_hwc, scale, out_dtype=out_dtype)
+        return eng.denoise_raw(raw_hwc, scale, out_dtype=out_dtype)
 
     def denoise_many(self, raws, scale: float, out_dtype: str = "float32"):
         """Coalesced group denoise (``TileEngine.denoise_many``) when the
         images share shape and dtype, tile validly, underfill one batch
-        each (``ntiles < batch_size``) and fit the stacked-band budget;
-        otherwise each image runs on its own. Returns per-image results in
+        each (``ntiles < batch_size``) and fit the stacked-band budget, and
+        the mode is not ``int8_static``; otherwise each image runs on its
+        own. Returns per-image results in
         input order: one (N, H, W, C) array for same-shape host dtypes, a
         list for 'device' or mixed shapes."""
         raws = list(raws)
         same = len(raws) >= 2 and all(
             r.shape == raws[0].shape and r.dtype == raws[0].dtype for r in raws[1:])
-        tile = self._adapt(*raws[0].shape[:2]) if same else None
+        tile = self._adapt(*raws[0].shape[:2]) \
+            if same and self.compute_dtype != "int8_static" else None
         if tile is not None:
             eng = self._engine_for(*tile)
             h, w, c = raws[0].shape

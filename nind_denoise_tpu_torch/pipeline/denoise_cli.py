@@ -26,10 +26,12 @@ and ``--precision``.
 ``-v`` prints the seconds of each stage: decode, load, denoise, rl+encode,
 exif, and develop and stage2 where darktable runs.
 
-Not ported, and raising ``NotImplementedError``: ``--rl-psf gmic_fast``
-(ROADMAP queue 1 item 4) and int8 compute (item 5). The JAX CLI's
-``--rl-impl`` (its choices name the TPU kernels) and ``--devices`` (item 9)
-are not flags here. The model table's download is left out: a missing
+``--rl-psf gmic_fast`` runs RL with the Deriche IIR (kernel P2), and
+``--compute_dtype int8|int8_static`` the quantized forward (kernel P1);
+``int8_static`` recalibrates its activation scales on each image, as the
+JAX CLI's serial path does. The JAX CLI's ``--rl-impl`` (its choices name
+the TPU kernels) and ``--devices`` (ROADMAP queue 1 item 9) are not flags
+here. The model table's download is left out: a missing
 checkpoint raises ``FileNotFoundError`` naming its path and the table's URL.
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_cli img.tif --tiff-input -o out/
@@ -82,8 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iterations", default="10", help="RL-deblur iterations")
     p.add_argument("--rl-psf", default="gaussian",
                    choices=["gaussian", "gmic_fast"], dest="rl_psf",
-                   help="RL blur PSF: the exact truncated-FIR gaussian; gmic_fast "
-                        "(the Deriche IIR) is not ported yet (ROADMAP queue 1 item 4)")
+                   help="RL blur PSF: the exact truncated-FIR gaussian, or "
+                        "gmic_fast (the Deriche IIR of gmic's fast blur)")
     p.add_argument("--height", help="Max output height")
     p.add_argument("--copy_num", help="darktable duplicate number (XMP naming)")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -96,25 +98,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32", "int8", "int8_static"],
-                   help="int8/int8_static are not ported yet (ROADMAP queue 1 item 5)")
+                   help="int8/int8_static (UtNet only): the quantized forward; "
+                        "int8_static calibrates its static scales on each image")
     p.add_argument("--precision", default="default", choices=["default", "float32"],
                    help="float32: no TF32 in float32 convs and matmuls")
     p.add_argument("--cs", type=int, help="Override tile size")
     p.add_argument("--ucs", type=int, help="Override useful tile size")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise on a flag value the port does not run yet."""
-    if args.rl_psf != "gaussian":
-        raise NotImplementedError(
-            "--rl-psf gmic_fast (the Deriche IIR) is not ported yet "
-            "(ROADMAP queue 1 item 4)")
-    if args.compute_dtype.startswith("int8"):
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype} is not ported yet "
-            f"(ROADMAP queue 1 item 5, int8)")
 
 
 def check_good_input(path: pathlib.Path, extensions) -> bool:
@@ -159,8 +150,10 @@ class Session:
     ``AdaptiveEngine`` per (checkpoint, network, cs, ucs, batch, dtype,
     precision, device) — the checkpoint is loaded once, and each engine
     adapts its tiling per image, so a small image among large ones gets
-    its own tile size, never a larger one's — and the decode-ahead thread
-    of directory mode. ``close`` shuts the thread down."""
+    its own tile size, never a larger one's, and an ``int8_static``
+    engine recalibrates on each image, as the JAX CLI's serial path does
+    with its memoized engines — and the decode-ahead thread of directory
+    mode. ``close`` shuts the thread down."""
 
     def __init__(self):
         self.engines: dict = {}
@@ -249,11 +242,13 @@ def _encode_u8(u8_hwc: np.ndarray, out_fpath: pathlib.Path, quality: str) -> Non
 
 def _rl_deblur_ondevice(in_fpath: pathlib.Path, out_fpath: pathlib.Path,
                         sigma: int, iterations: int, quality: str,
-                        verbose: bool = False, device=None) -> None:
+                        verbose: bool = False, device=None,
+                        psf: str = "gaussian") -> None:
     """RL from the stage-2 file on the device, then the gmic quantize."""
     img = imgio.load_img(str(in_fpath)).transpose(1, 2, 0)  # [0,1] HWC
     _encode_u8(rl_deblur.rl_deblur_to_uint8(img, float(sigma), int(iterations),
-                                            device=device), out_fpath, quality)
+                                            device=device, psf=psf),
+               out_fpath, quality)
     if verbose:
         print(f"Applied on-device RL-deblur to: {out_fpath}")
 
@@ -283,7 +278,6 @@ def denoise_file(args, input_path: pathlib.Path,
     """Denoise one file; returns the output path, or None for a RAW that
     has no XMP sidecar (skipped)."""
     print(input_path)
-    check_ported(args)
     if session is None:
         session = Session()
         try:
@@ -365,7 +359,8 @@ def denoise_file(args, input_path: pathlib.Path,
         denoised01 = _denoise_to_tensor(session, mcfg, s1_fpath, args, timers)
         with timers.stage("rl+encode"):
             if rldeblur:
-                u8 = rl_deblur.rl_to_u8_device(denoised01, sigma, iterations)
+                u8 = rl_deblur.rl_to_u8_device(denoised01, sigma, iterations,
+                                               psf=args.rl_psf)
                 _encode_u8(u8.cpu().numpy(), outpath, quality)
             elif outpath.suffix.lower() == ".tiff":
                 imgio.save_img(denoised01.cpu().numpy().transpose(2, 0, 1), str(outpath))
@@ -414,7 +409,8 @@ def denoise_file(args, input_path: pathlib.Path,
                     outpath = outpath.replace(outpath.with_name(restore))
             else:
                 _rl_deblur_ondevice(s2_fpath, outpath, sigma, iterations, quality,
-                                    verbose=args.verbose, device=args.device)
+                                    verbose=args.verbose, device=args.device,
+                                    psf=args.rl_psf)
 
     with timers.stage("exif"):
         exif_mod.clone_exif(s1_fpath, outpath, verbose=args.verbose)

@@ -11,10 +11,14 @@ tiny-image and whole-image paths, ``--debug`` tile dumps into ``dbg/``, and
 the reference's bit depth by output extension. Plus ``--device`` (CUDA
 unless ``--device cpu``).
 
+``--compute_dtype int8|int8_static`` runs the quantized forward (kernel
+P1); ``int8_static`` calibrates its static scales on crops of the input
+(``ops/qconv.calib_from_image``), as the JAX CLI does. ``--whole_image``
+with an int8 mode exits with the JAX CLI's message.
+
 Not ported, and raising ``NotImplementedError`` rather than being ignored:
-more than one device (``--devices`` > 1, ROADMAP queue 1 item 9), int8
-compute (``--compute_dtype int8*``, item 5), ``--trace_dir`` (item 10) and
-networks other than UtNet (item 7).
+more than one device (``--devices`` > 1, ROADMAP queue 1 item 9),
+``--trace_dir`` (item 10) and networks other than UtNet (item 7).
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_image_cli \
         -i noisy.tif -o denoised.tiff --network UtNet --model_path ckpt.npz
@@ -35,6 +39,7 @@ from ..core.tiles import TilingError, adapt_cs_ucs, default_cs_ucs
 from ..engine.tile_engine import make_engine
 from ..models import params_io
 from ..models.utnet import check_cs
+from ..ops.qconv import calib_from_image
 from ..utils import conf
 from ..utils.log import StageTimers
 from . import exif as exif_mod
@@ -104,7 +109,8 @@ def build_parser() -> conf.LayeredArgumentParser:
     p.add_argument("--models_dpath", help="Directory that --model_path names are under")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32", "int8", "int8_static"],
-                   help="int8/int8_static are not ported yet (ROADMAP queue 1 item 5)")
+                   help="int8/int8_static (UtNet only): the quantized forward; "
+                        "int8_static calibrates its static scales on the input")
     p.add_argument("--precision", default="default", choices=["default", "float32"],
                    help="float32: no TF32 in float32 convs and matmuls")
     p.add_argument("--trace_dir", help="not ported yet (ROADMAP queue 1 item 10)")
@@ -121,10 +127,11 @@ def check_ported(args) -> None:
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
-    if args.compute_dtype.startswith("int8"):
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype} is not ported yet "
-            f"(ROADMAP queue 1 item 5, int8)")
+    if args.whole_image and args.compute_dtype.startswith("int8"):
+        raise SystemExit(
+            "--whole_image does not support --compute_dtype "
+            "int8/int8_static; drop --whole_image (the tiled path supports "
+            "it) or use --compute_dtype bfloat16/float32")
     if args.trace_dir:
         raise NotImplementedError("--trace_dir is not ported yet (ROADMAP queue 1 item 10)")
     if args.g_network != "UtNet":
@@ -166,8 +173,8 @@ def run(args, timers: Optional[StageTimers] = None) -> str:
     with timers.stage("load"):
         model = load_generator_model(args)
 
-    def build_engine(cs, ucs):
-        return make_engine(args.g_network, model, cs=cs, ucs=ucs,
+    def build_engine(cs, ucs, calib=None):
+        return make_engine(args.g_network, model, cs=cs, ucs=ucs, calib=calib,
                            ol=args.overlap, batch_size=args.batch_size,
                            compute_dtype=args.compute_dtype,
                            precision=args.precision,
@@ -186,18 +193,22 @@ def run(args, timers: Optional[StageTimers] = None) -> str:
         with timers.stage("decode"):
             raw, scale = imgio.load_img_raw(args.input)
         with timers.stage("denoise"):
+            # int8_static: static scales from crops of this input; only the
+            # crops are divided by the storage scale
+            calib = (calib_from_image(raw, scale=scale)
+                     if args.compute_dtype == "int8_static" else None)
             try:
                 cs, ucs = adapt_cs_ucs(raw.shape[0], raw.shape[1], args.cs, args.ucs,
                                        args.overlap, check_cs)
                 if (cs, ucs) != (args.cs, args.ucs):
                     print(f"Image {raw.shape[1]}x{raw.shape[0]} too small for "
                           f"cs={args.cs}/ucs={args.ucs}; using cs={cs}, ucs={ucs}")
-                engine = build_engine(cs, ucs)
+                engine = build_engine(cs, ucs, calib)
                 den = lambda dt: engine.denoise_raw(raw, scale, out_dtype=dt)
             except TilingError:
                 print(f"Image {raw.shape[1]}x{raw.shape[0]} below the minimum "
                       f"tiling; denoising as one padded forward")
-                engine = build_engine(args.cs, args.ucs)
+                engine = build_engine(args.cs, args.ucs, calib)
                 den = lambda dt: engine.denoise_tiny(raw, scale, out_dtype=dt)
             ext = os.path.splitext(args.output)[1].lower()
             if ext in (".png", ".tif"):

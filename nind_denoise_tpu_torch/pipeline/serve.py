@@ -29,8 +29,11 @@ Endpoints:
   encoded result
 * ``POST /reload?model_path=...`` -> hot checkpoint rollover
 
-Not ported yet: ``--parallel shard|images`` (multi-GPU), int8 compute and
-``psf=gmic_fast``.
+``--compute_dtype int8|int8_static`` serves the quantized forward
+(kernel P1); ``int8_static`` recalibrates on each request's image and
+never coalesces (``AdaptiveEngine``). ``psf=gmic_fast`` runs RL with the
+Deriche IIR (kernel P2). Not ported yet: ``--parallel shard|images``
+(multi-GPU).
 
     python -m nind_denoise_tpu_torch.pipeline.serve --model_path ckpt.npz \
         [--device cpu] --port 8601
@@ -67,9 +70,7 @@ class ServiceBusy(RuntimeError):
 def _check_psf(rl: bool, psf: str) -> None:
     if not rl:
         return  # the psf only shapes the RL stage
-    if psf == "gmic_fast":
-        raise ValueError("psf='gmic_fast' is not ported yet")
-    if psf != "gaussian":
+    if psf not in ("gaussian", "gmic_fast"):
         raise ValueError(f"unknown psf {psf!r}")
 
 
@@ -493,7 +494,9 @@ def main(argv=None):
     ap.add_argument("--activation", default="PReLU")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--compute_dtype", default="bfloat16",
-                    choices=["bfloat16", "float32"])
+                    choices=["bfloat16", "float32", "int8", "int8_static"],
+                    help="int8/int8_static (UtNet only): the quantized forward; "
+                         "int8_static recalibrates on each request")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--parallel", default="auto",
                     choices=["auto", "shard", "images", "single"],

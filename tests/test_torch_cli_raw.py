@@ -164,9 +164,6 @@ def test_raw_without_darktable_raises(tmp_path, checkpoint):
 
 
 @pytest.mark.parametrize("cli,argv,item", [
-    ("denoise", ["--rl-psf", "gmic_fast"], "item 4"),
-    ("denoise", ["--compute_dtype", "int8"], "item 5"),
-    ("denoise_image", ["--compute_dtype", "int8_static"], "item 5"),
     ("denoise_image", ["--devices", "2"], "item 9"),
     ("denoise_image", ["--trace_dir", "trace"], "item 10"),
     ("denoise_image", ["--network", "UNet"], "item 7"),

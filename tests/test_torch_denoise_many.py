@@ -177,9 +177,3 @@ def test_adaptive_shares_one_resolved_model(models):
     ada.denoise_raw(_imgs(1, 33, 47, seed=13)[0], 1.0)  # the tiny engine
     assert set(ada._engines) == {(136, 120), (120, 104), "tiny"}
     assert all(e.apply_fn is ada._resolved for e in ada._engines.values())
-
-
-def test_adaptive_int8_is_not_ported(models):
-    with pytest.raises(NotImplementedError):
-        tte.AdaptiveEngine("UtNet", models[1], compute_dtype="int8_static",
-                           device="cpu")

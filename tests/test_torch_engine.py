@@ -98,5 +98,22 @@ def test_max_subpixels_guard(engines):
 def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError):
         tte.resolve_apply_fn("UNet", UtNet(4), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tte.resolve_apply_fn("UtNet", UtNet(4), compute_dtype="int8", device="cpu")
+
+
+def test_resolve_apply_fn_int8_modes():
+    """int8 and int8_static resolve to the quantized forward; int8_static
+    is calibrated (on the synthetic set, or on ``calib``) before its first
+    call, and an unknown compute dtype raises."""
+    from nind_denoise_tpu_torch.models.utnet_int8 import QuantUtNet
+    from nind_denoise_tpu_torch.ops.qconv import calib_tiles
+
+    model = UtNet(4)
+    dyn = tte.resolve_apply_fn("UtNet", model, compute_dtype="int8", device="cpu")
+    assert isinstance(dyn, QuantUtNet) and not dyn.static
+    stat = tte.resolve_apply_fn("UtNet", model, compute_dtype="int8_static",
+                                device="cpu", calib=calib_tiles(136, seed=1))
+    want = QuantUtNet(model, static=True, device="cpu").calibrate(calib_tiles(136, seed=1))
+    assert stat.calibrated and {k: float(v) for k, v in stat.acts.items()} == \
+        {k: float(v) for k, v in want.items()}
+    with pytest.raises(ValueError):
+        tte.resolve_apply_fn("UtNet", model, compute_dtype="int4", device="cpu")

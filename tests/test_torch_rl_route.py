@@ -91,7 +91,7 @@ def test_route_counter_advances_once_per_call():
         trl.rl_deblur(x, sigma, 1)
     trl.rl_to_u8_device(x, 11.0, 1)
     assert {k: trl.routes[k] - before[k] for k in trl.ROUTES} == {
-        "fused": 2, "separable_k3": 3, "separable_plain": 1}
+        "fused": 2, "separable_k3": 3, "separable_plain": 1, "deriche": 0}
 
 
 def test_rl_iter_breakdown_variants_apply_to_the_kernel():

@@ -194,6 +194,47 @@ def test_coalesced_rl_group_matches_serial_requests(server):
     assert _burst(svc, base, imgs, query) == serial  # byte-identical PNGs
 
 
+def test_gmic_fast_psf_is_answered(server):
+    """``psf=gmic_fast`` runs RL with the Deriche IIR: the response equals
+    the engine + ``rl_to_u8_device`` run of the same request."""
+    from nind_denoise_tpu_torch.ops import rl_deblur
+
+    svc, base = server
+    img = _img(104, 112, 6)
+    body = _post(base, img, "output=png&psf=gmic_fast&iterations=3&sigma=2")
+    out = svc._adaptive.denoise_raw(img, 65535.0, out_dtype="device")
+    want = rl_deblur.rl_to_u8_device(out, 2.0, 3, psf="gmic_fast").numpy()
+    np.testing.assert_array_equal(_decode(body), want)
+
+
+def test_int8_static_service_recalibrates_and_never_coalesces(ckpts, monkeypatch):
+    """An int8_static service: a burst of same-shape requests runs per
+    image (no coalesced ``TileEngine.denoise_many``), each response equal
+    to the engine + RL run of its request, which recalibrates first."""
+    from nind_denoise_tpu_torch.engine import tile_engine
+    from nind_denoise_tpu_torch.ops import rl_deblur
+
+    kw = dict(KW, compute_dtype="int8_static")
+    svc = serve_mod.DenoiseService("UtNet", ckpts[0], **kw)
+    httpd = serve_mod.serve(svc, "127.0.0.1", 0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        monkeypatch.setattr(tile_engine.TileEngine, "denoise_many",
+                            lambda *a, **k: pytest.fail("coalesced an int8_static group"))
+        imgs = [_img(64, 80, 60 + i) for i in range(3)]
+        query = "output=png&iterations=2"
+        bodies = _burst(svc, f"http://127.0.0.1:{httpd.server_address[1]}", imgs, query)
+        for img, body in zip(imgs, bodies):
+            out = svc._adaptive.denoise_raw(img, 65535.0, out_dtype="device")
+            want = rl_deblur.rl_to_u8_device(out, 1.0, 2).numpy()
+            np.testing.assert_array_equal(_decode(body), want)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+
+
 def test_small_and_tiny_images(server):
     svc, base = server
     for hw in ((64, 72), (33, 47)):  # an adapted tiling; below the minimum
@@ -205,7 +246,6 @@ def test_small_and_tiny_images(server):
 @pytest.mark.parametrize("query,body,match", [
     ("output=png", b"not an image", "decode"),
     ("output=exe", None, "output format"),
-    ("output=png&psf=gmic_fast", None, "not ported"),
     ("output=png&psf=box", None, "unknown psf"),
 ])
 def test_bad_requests_are_400_before_the_denoise(server, query, body, match):
