@@ -68,11 +68,14 @@ limit as nvidia-smi reports them):
    plain version and cuDNN's level 1.
 
 12. qconv: P1 (the int8 conv) against its plain version at every int8 conv
-   shape of the funit-64 forward on 8 x 504^2 tiles (int32 sums, fp32 and
-   bf16 dequantized outputs, per-sample and scalar scales, the level-4
-   parity scales), bit-equal on the batch's first samples; per shape its
-   time, bound, plain time, ``torch._int_mm`` over an im2col and cuDNN's
-   bf16 conv; what torch on the card offers for an int8 conv;
+   shape of the funit-64 forward on 8 x 504^2 tiles, in every epilogue
+   variant the forward uses (int32 sums; fp32 raw sums with per-sample or
+   the level-4 parity scales; bf16 with bias and PReLU; the decoder's fp32
+   sum with its addend and bias map; int8 out with a static scale),
+   bit-equal on the batch's first samples; per shape its time (bf16 with
+   bias, and the forward's own epilogue), bounds, plain time,
+   ``torch._int_mm`` over an im2col and cuDNN's bf16 conv; what torch on
+   the card offers for an int8 conv;
 13. deriche: P2 (the Deriche IIR) bit-equal to its plain version at
    (3, 2000, 3000) and (24, 480, 480), sigma 1 and 10, along each axis;
 14. int8: ``denoise_cli --tiff-input`` on the 6 MP TIFF with
@@ -116,6 +119,11 @@ HW, FUNIT = (2000, 3000), 64
 # the int8 and RL-variant phases' device, and the batch and tile edge of
 # the int8 forward's timing (a CPU rehearsal makes these small)
 DEV, FWD = "cuda", (8, 504)
+# the int8 CLI phase's PSNRs against float32 on its seeded image and
+# checkpoint (NVIDIA H100 80GB HBM3), as the forward read with the quantize,
+# PReLU and decoder sums as separate torch passes; P1's epilogue rounds as
+# those passes do, so the PSNRs must not move
+INT8_CLI_PSNR_DB = {"int8": 59.40, "int8_static": 58.05}
 STAGE = re.compile(r"([\w+]+): ([0-9.]+)s/(\d+)x")  # one stage of a -v split
 
 
@@ -1183,48 +1191,6 @@ def phase_whole_image(torch, card, tmp, kernel_mods, ckpt, tif):
 
 # -- P1 (int8 conv) and P2 (Deriche) -------------------------------------------
 
-def p1_shapes(cs: int = 504, f: int = 64):
-    """Every int8 conv of the funit-``f`` forward on cs x cs tiles, in the
-    forward's order: (site, input edge, cin, cout, k, pads, lhs dilation).
-    The first, enc1's c1, runs in int8_static only."""
-    V, FU, UP = (0, 0, 0, 0), (2, 2, 2, 2), (3, 3, 3, 3)
-    shapes = [("enc1_c1fq", cs + 2, f, f, 3, V, 1)]
-    skips = [(cs, f)]  # l1
-    h, c = cs // 2, f
-    for name in ("convs2", "convs3", "convs4"):
-        shapes += [(f"{name}_c0q", h, c, 2 * c, 3, V, 1),
-                   (f"{name}_c1q", h - 2, 2 * c, 2 * c, 3, V, 1)]
-        c *= 2
-        skips.append((h - 4, c))
-        h = (h - 4) // 2
-    shapes += [("bottom_c0q", h, c, 2 * c, 3, V, 1),
-               ("bottom_c1q", h - 2, 2 * c, 2 * c, 3, FU, 1)]
-    c *= 2
-    for lvl, (hs, cskip) in enumerate(reversed(skips)):
-        names = ("K3fq", "w3b4q", "dec4_c1q") if lvl == 3 else \
-            (f"K{lvl}q", f"skip{lvl}q", f"dec{lvl}_c1q")
-        co = c // 2
-        shapes += [(names[0], h, c, co, 4, UP, 2), (names[1], hs, cskip, co, 3, FU, 1),
-                   (names[2], hs + 2, co, co, 3, FU, 1)]
-        h, c = hs + 4, co
-    return shapes
-
-
-def p1_macs(n, ho, wo, cin, cout, k, dil, pad):
-    """MACs of one P1 conv without the dilation's zeros: with lhs dilation
-    2 each output pixel reads ceil or floor of k/2 taps along each axis."""
-    if dil == 1:
-        return n * ho * wo * cout * cin * k * k
-    total = 0
-    for py in (0, 1):
-        for px in (0, 1):
-            ny, nx = (ho - py + 1) // 2, (wo - px + 1) // 2
-            ty = len([a for a in range(k) if (py + a - pad) % 2 == 0])
-            tx = len([b for b in range(k) if (px + b - pad) % 2 == 0])
-            total += ny * nx * ty * tx
-    return n * total * cout * cin
-
-
 def torch_int8_conv_offer(torch):
     """What torch on the card offers for an int8 convolution: each probe
     and its outcome (a yardstick survey; the port calls none of them)."""
@@ -1281,21 +1247,29 @@ def int_mm_library(torch, xq, wk, pads, dil, ho, wo):
 def phase_qconv(torch, card, batch: int = 8, cs: int = 504, f: int = 64,
                 full_batch_plain_macs: float = 2e10):
     """P1 against its plain version at every int8 conv shape of the
-    funit-``f`` forward on a batch of ``batch`` cs x cs tiles: the int32
-    sums, fp32 without bias (per-sample scales) and bf16 with bias (a
-    scalar scale), the level-4 composed conv with its parity scales; each
-    bit-equal on the first samples of the batch (all of them where the
-    plain float64 conv is cheap). Per shape: P1's warm time (bf16 out,
-    bias), its bound, the plain version's, ``torch._int_mm`` over an
-    im2col of the same input, and cuDNN's bf16 conv of the same shape."""
+    funit-``f`` forward on a batch of ``batch`` cs x cs tiles, in every
+    epilogue variant the forward uses: the int32 sums; fp32 without bias
+    (per-sample scales; the level-4 composed conv with its parity scales);
+    bf16 with bias and PReLU (per-sample scales); the decoder's sum (an
+    fp32 addend and bias map, bias, PReLU; a scalar scale); and each of the
+    last two quantized to int8 with a static scale. Each is bit-equal on
+    the first samples of the batch (all of them where the plain float64
+    conv is cheap). Per shape: P1's warm time with bf16 out and the bias
+    (the yardstick instance, no fused option) and in the epilogue the forward
+    gives the site (``site_epilogue``), each with its bound (the fused
+    instance's counts its addends' bytes), the plain version's time,
+    ``torch._int_mm`` over an im2col of the same input, and cuDNN's bf16
+    conv of the same shape."""
     import torch.nn.functional as F
 
+    from nind_denoise_tpu_torch.models.utnet_int8 import conv_shapes, site_epilogue
     from nind_denoise_tpu_torch.ops import qconv as Q
 
     gen = torch.Generator(device=DEV).manual_seed(21)
     rows, totals = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                            cudnn_bf16_ms=0.0)
-    for site, h, cin, cout, k, pads, dil in p1_shapes(cs, f):
+                            cudnn_bf16_ms=0.0, fwd_ms=0.0, fwd_bound_ms=0.0)
+    for site, h, cin, cout, k, pads, dil in conv_shapes(cs, f):
+        kind, static_q = site_epilogue(site)
         ho, wo = Q.out_hw(h, h, k, k, pads, dil)
         xq = torch.randint(-127, 128, (batch, h, h, cin), dtype=torch.int8,
                            device=DEV, generator=gen)
@@ -1306,42 +1280,75 @@ def phase_qconv(torch, card, batch: int = 8, cs: int = 504, f: int = 64,
         sw = torch.rand((2, cout) if site == "K3fq" else (cout,), device=DEV,
                         generator=gen) * 1e-3 + 1e-4
         bias = torch.rand(cout, device=DEV, generator=gen) - 0.5
+        a = torch.full((1,), 0.25, device=DEV)
+        qs = torch.full((1,), 0.02, device=DEV)
+        addend = torch.randn(batch, ho, wo, cout, device=DEV, generator=gen)
+        bmap = torch.randn(1, ho, wo, cout, device=DEV, generator=gen)
         dense = ho * wo * cout * cin * k * k * (4 if dil == 2 else 1)
         m = max(1, min(batch, int(full_batch_plain_macs // dense)))
-        acc = Q.conv_int8(xq, wk, pads, dil, out_dtype=torch.int32)
-        y32 = Q.conv_int8(xq, wk, pads, dil, sx=sx, sw=sw, out_dtype=torch.float32)
-        y16 = Q.conv_int8(xq, wk, pads, dil, sx=sx1, sw=sw, bias=bias,
-                          out_dtype=torch.bfloat16)
         ref = Q.conv_i32_reference(xq[:m], wk, pads, dil)
-        r32 = Q.dequant_reference(ref, sx[:m], sw)
-        r16 = Q.dequant_reference(ref, sx1, sw, bias, torch.bfloat16)
-        torch.cuda.synchronize()
-        check(acc.shape == (batch, ho, wo, cout), f"qconv {site}: shape {tuple(acc.shape)}")
-        eq = dict(int32=bool(torch.equal(acc[:m], ref)),
-                  f32=bool(torch.equal(y32[:m], r32)),
-                  bf16=bool(torch.equal(y16[:m], r16)))
+        act = dict(bias=bias, out_dtype=torch.bfloat16, prelu=a)
+        summ = dict(act, addend=addend, bias_map=bmap)
+        variants = {  # name: (sx, options)
+            "int32": (None, dict(out_dtype=torch.int32)),
+            "f32_raw": (sx, dict(out_dtype=torch.float32)),
+            "bf16_bias": (sx1, dict(bias=bias, out_dtype=torch.bfloat16)),
+            "bf16_bias_prelu": (sx, act),
+            "bf16_sum": (sx1, summ),
+            "int8_bias_prelu": (sx1, dict(act, out_scale=qs)),
+            "int8_sum": (sx1, dict(summ, out_scale=qs)),
+        }
+        eq = {}
+        for name, (s_x, kw) in variants.items():
+            got = Q.conv_int8(xq, wk, pads, dil, sx=s_x, sw=sw, **kw)
+            if kw["out_dtype"] == torch.int32:
+                want = ref
+            else:
+                sub = {key: (v[:m] if key == "addend" else v) for key, v in kw.items()}
+                want = Q.dequant_reference(ref, s_x if s_x is sx1 else s_x[:m], sw,
+                                           sub.get("bias"), sub["out_dtype"],
+                                           sub.get("addend"), sub.get("bias_map"),
+                                           sub.get("prelu"), sub.get("out_scale"))
+            torch.cuda.synchronize()
+            check(got.shape == (batch, ho, wo, cout), f"qconv {site} {name}: shape "
+                                                      f"{tuple(got.shape)}")
+            eq[name] = bool(torch.equal(got[:m], want))
+            del got, want
         check(all(eq.values()), f"qconv {site} ({batch},{h},{h},{cin})->{cout}: "
-                                f"not bit-equal {eq}, max int32 diff "
-                                f"{(acc[:m] - ref).abs().max().item()}")
-        macs = p1_macs(batch, ho, wo, cin, cout, k, dil, pads[0])
-        nbytes = xq.numel() + wk.numel() + batch * ho * wo * cout * 2 + 4 * (3 * cout + batch)
+                                f"not bit-equal {eq}")
+        macs = Q.macs(batch, ho, wo, cin, cout, k, dil, pads[0])
+        out_n = batch * ho * wo * cout
+        nbytes = xq.numel() + wk.numel() + 2 * out_n + 4 * (3 * cout + batch)
         bms, by = bound_ms(nbytes, 2.0 * macs, "int8")
         reps = 5 if macs > 5e10 else 20
         ms = time_ms(torch, lambda: Q.conv_int8(xq, wk, pads, dil, sx=sx1, sw=sw, bias=bias,
                                                  out_dtype=torch.bfloat16), reps)
+        # the epilogue the forward gives this site, its bytes in its bound
+        fwd_kw = {"raw": dict(out_dtype=torch.float32), "act": act, "sum": summ}[kind]
+        fwd_sx = sx if kind != "sum" else sx1
+        fwd_bytes = xq.numel() + wk.numel() + 4 * (3 * cout + batch) + \
+            out_n * (4 if kind == "raw" else 2) + (4 * out_n + 4 * ho * wo * cout) * (kind == "sum")
+        fwd_bms, fwd_by = bound_ms(fwd_bytes, 2.0 * macs, "int8")
+        fwd_ms = time_ms(torch, lambda: Q.conv_int8(xq, wk, pads, dil, sx=fwd_sx, sw=sw,
+                                                     **fwd_kw), reps)
         plain = time_ms(torch, lambda: Q.conv_int8_reference(
             xq[:m], wk, pads, dil, sx1, sw, bias, torch.bfloat16), 1)
         lib_run, lib_info = int_mm_library(torch, xq, wk, pads, dil, ho, wo)
         rec = dict(site=site, input=[batch, h, h, cin], cout=cout, k=k, pads=list(pads),
                    lhs_dilation=dil, output=[batch, ho, wo, cout], macs=macs,
                    checked_samples=m, bit_equal=eq, ms=ms, bound_ms=bms, bound_by=by,
+                   epilogue=kind, fwd_ms=fwd_ms, fwd_bound_ms=fwd_bms, fwd_bound_by=fwd_by,
                    plain_ms=plain, plain_samples=m)
+        if static_q:
+            rec["fwd_int8_ms"] = time_ms(torch, lambda: Q.conv_int8(
+                xq, wk, pads, dil, sx=sx1, sw=sw, out_scale=qs, **fwd_kw), reps)
         if lib_run is None:
             rec["int_mm_ms"], rec["int_mm_error"] = None, lib_info
         else:
             rec["int_mm_ms"] = time_ms(torch, lib_run, reps)
             rec["int_mm_equal"] = bool(torch.equal(
-                lib_run().reshape(batch, ho, wo, cout), acc))
+                lib_run().reshape(batch, ho, wo, cout),
+                Q.conv_int8(xq, wk, pads, dil, out_dtype=torch.int32)))
             del lib_info
         # cuDNN's bf16 conv of the same shape (channels_last), a yardstick
         xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
@@ -1360,12 +1367,12 @@ def phase_qconv(torch, card, batch: int = 8, cs: int = 504, f: int = 64,
         rows.append(rec)
         for key in totals:
             totals[key] += rec[key if key != "library_ms" else "int_mm_ms"] or 0.0
-        del xq, wk, acc, y32, y16, ref, r32, r16, xb, wb
+        del xq, wk, ref, xb, wb, addend, bmap
         torch.cuda.empty_cache()
     heavy = sorted(rows, key=lambda r: -r["ms"])[:5]
     emit(card, phase="qconv_summary", batch=batch, cs=cs, funit=f, convs=len(rows),
          offer=torch_int8_conv_offer(torch),
-         heaviest=[dict(site=r["site"], ms=r["ms"], bound_ms=r["bound_ms"],
+         heaviest=[dict(site=r["site"], ms=r["ms"], fwd_ms=r["fwd_ms"], bound_ms=r["bound_ms"],
                         int_mm_ms=r["int_mm_ms"], cudnn_bf16_ms=r["cudnn_bf16_ms"])
                    for r in heavy], **{f"sum_{k}": v for k, v in totals.items()})
     return dict(max_abs_err=0.0, ms=totals["ms"], plain_ms=totals["plain_ms"],
@@ -1460,6 +1467,10 @@ def phase_int8(torch, card, tmp, kernel_mods, tif, ckpt):
               f"int8 cli {mode}: launches {launches}, expected {want}")
         db = psnr_u8(got, ref)
         check(db >= floor, f"int8 cli {mode}: PSNR {db:.2f} dB against float32 < {floor}")
+        # P1's epilogue options round as the torch passes they replace, so
+        # the PSNR reads as before them (the same image, weights and card)
+        check(round(db, 2) == INT8_CLI_PSNR_DB[mode],
+              f"int8 cli {mode}: PSNR {db:.4f} dB, expected {INT8_CLI_PSNR_DB[mode]}")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             cli_run(denoise_cli, argv)
             torch.cuda.synchronize()
@@ -1476,20 +1487,32 @@ def phase_int8(torch, card, tmp, kernel_mods, tif, ckpt):
     model = params_io.load_generator(ckpt, "PReLU")
     gen = torch.Generator(device=DEV).manual_seed(23)
     x = torch.rand(FWD[0], 3, FWD[1], FWD[1], device=DEV, generator=gen).to(torch.bfloat16)
-    fwd = {}
+    fwd, top, p1_share = {}, {}, {}
     with torch.inference_mode():
         bf16 = UtNet(FUNIT)
         bf16.load_state_dict(model.state_dict())
         bf16 = bf16.to(DEV, torch.bfloat16).eval()
-        fwd["bfloat16"] = time_ms(torch, lambda: bf16(x), 5)
+        nets = {"bfloat16": bf16}
         for mode in ("int8", "int8_static"):
-            q = QuantUtNet(model, static=mode == "int8_static", device=DEV)
-            if q.static:
-                q.calibrate(calib_tiles())
-            fwd[mode] = time_ms(torch, lambda: q(x), 5)
+            nets[mode] = QuantUtNet(model, static=mode == "int8_static", device=DEV)
+            if nets[mode].static:
+                nets[mode].calibrate(calib_tiles())
+        for mode, net in nets.items():
+            fwd[mode] = time_ms(torch, lambda: net(x), 5)
+            # the device kernels of one warm forward, by name
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                net(x)
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            total = sum(e.self_device_time_total for e in kernels)
+            top[mode] = {e.key[:90]: e.self_device_time_total / 1e3 for e in sorted(
+                kernels, key=lambda e: -e.self_device_time_total)[:8]}
+            p1_share[mode] = sum(e.self_device_time_total for e in kernels
+                                 if "qconv_kernel" in e.key) / max(total, 1e-9)
     emit(card, phase="int8_forward", batch=[FWD[0], FWD[1], FWD[1]], funit=FUNIT, ms=fwd,
          int8_over_bf16=fwd["int8"] / fwd["bfloat16"],
-         int8_static_over_bf16=fwd["int8_static"] / fwd["bfloat16"])
+         int8_static_over_bf16=fwd["int8_static"] / fwd["bfloat16"],
+         p1_share_of_device_time=p1_share, top_device_ms=top)
     return by_run
 
 

@@ -16,7 +16,8 @@ scales (static). The graph keeps the JAX forward's quantize points:
 - decoder levels 1-3: the composed up-conv (``ops/compose``, a 4x4 conv
   with lhs dilation 2) and the skip conv (3x3 FULL), both int8 and summed
   in fp32 with the up-conv's bias map and the conv bias, then the cast,
-  the activation and the int8 ``c1`` (3x3 FULL);
+  the activation and the int8 ``c1`` (3x3 FULL); the skip conv's P1
+  epilogue does that sum, the cast and the PReLU;
 - level 4 the same, the composed conv carrying two weight-scale vectors
   chosen by the output column's parity, then the final 1x1 in the work
   dtype and the crop.
@@ -30,6 +31,15 @@ unfolded composed conv here quantizes each tap column with the scale of
 its parity class, and P1's epilogue picks the scale row by the output
 column's parity. Odd H or W runs the exact float forward, decided from
 the shape.
+
+P1's epilogue (``ops/qconv.conv_int8``) also applies each conv's bias and
+a one-weight PReLU and, in static mode, quantizes the output where one
+quantize site reads it (each double conv's c0, the bottom's c1, the
+decoder sum, each ``dec{l}_c1q`` but level 4's), rounding as the torch
+ops it replaces. The encoder's c1 outputs feed a pool and a skip with two
+scales and stay in the work dtype; the dynamic mode's quantize needs each
+sample's amax first and stays a torch pass. Other activations keep their
+torch pass.
 
 ``calibrate(calib)`` runs one observing forward (dynamic quantization,
 fp32, no TF32) and sets the static scales ``max|input| * headroom / 127``
@@ -56,6 +66,46 @@ from .utnet import UtNet
 FULL3 = (2, 2, 2, 2)
 VALID = (0, 0, 0, 0)
 UP_PADS = (3, 3, 3, 3)  # the composed 4x4 conv, lhs dilation 2
+
+
+def conv_shapes(cs: int = 504, f: int = 64):
+    """Every int8 conv of the funit-``f`` forward on cs x cs tiles, in the
+    forward's order: (site, input edge, cin, cout, k, pads, lhs dilation).
+    The first, enc1's c1, runs in int8_static only."""
+    V, FU, UP = VALID, FULL3, UP_PADS
+    shapes = [("enc1_c1fq", cs + 2, f, f, 3, V, 1)]
+    skips = [(cs, f)]  # l1
+    h, c = cs // 2, f
+    for name in ("convs2", "convs3", "convs4"):
+        shapes += [(f"{name}_c0q", h, c, 2 * c, 3, V, 1),
+                   (f"{name}_c1q", h - 2, 2 * c, 2 * c, 3, V, 1)]
+        c *= 2
+        skips.append((h - 4, c))
+        h = (h - 4) // 2
+    shapes += [("bottom_c0q", h, c, 2 * c, 3, V, 1),
+               ("bottom_c1q", h - 2, 2 * c, 2 * c, 3, FU, 1)]
+    c *= 2
+    for lvl, (hs, cskip) in enumerate(reversed(skips)):
+        names = ("K3fq", "w3b4q", "dec4_c1q") if lvl == 3 else \
+            (f"K{lvl}q", f"skip{lvl}q", f"dec{lvl}_c1q")
+        co = c // 2
+        shapes += [(names[0], h, c, co, 4, UP, 2), (names[1], hs, cskip, co, 3, FU, 1),
+                   (names[2], hs + 2, co, co, 3, FU, 1)]
+        h, c = hs + 4, co
+    return shapes
+
+
+def site_epilogue(site: str):
+    """The epilogue the PReLU forward gives P1 at ``site``: ``"raw"`` (the
+    composed up-conv's fp32 sum), ``"sum"`` (the skip conv: the decoder's
+    fp32 sum, bias, PReLU) or ``"act"`` (bias, PReLU); and whether
+    int8_static quantizes its output there for the one site that reads it."""
+    if site.startswith("K"):
+        return "raw", False
+    if site.startswith("skip") or site == "w3b4q":
+        return "sum", True
+    return "act", site.endswith("_c0q") or site.startswith("bottom") or \
+        (site.startswith("dec") and site != "dec4_c1q")
 
 
 def conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -246,22 +296,34 @@ class QuantUtNet(nn.Module):
                 return t, acts[key]
             return Q.quant_act(t) if acts is None else Q.quant_act_static(t, acts[key])
 
-        def qc(t, key, pads, bias=None, dil=1):
-            """int8 conv with bias, in the work dtype; bias None: the raw
-            fp32 dequantized sum."""
+        def qc(t, key, pads, bias=None, dil=1, act_mod=None, addend=None, bmap=None,
+               next_key=None):
+            """int8 conv with bias in the work dtype, then ``act_mod``'s
+            activation; bias and addend None: the raw fp32 dequantized sum.
+            P1's epilogue takes the decoder's fp32 sum (``addend``,
+            ``bmap``), a one-weight PReLU and, in static mode, the quantize
+            of the one site ``next_key`` that reads the result (int8 out)."""
             tq, sx = quant(t, key)
             wq, sw = self.qweight(key)
-            return Q.conv_int8(tq, wq, pads, dil, sx=sx, sw=sw,
-                               bias=None if bias is None else bias.detach(),
-                               out_dtype=f32 if bias is None else work)
+            a = getattr(act_mod, "weight", None)
+            fuse = self.activation == "PReLU" and a is not None and a.numel() == 1
+            raw = bias is None and addend is None
+            y = Q.conv_int8(tq, wq, pads, dil, sx=sx, sw=sw,
+                            bias=None if bias is None else bias.detach(),
+                            out_dtype=f32 if raw else work, addend=addend, bias_map=bmap,
+                            prelu=a if fuse else None,
+                            out_scale=acts[next_key] if fuse and acts is not None
+                            and next_key is not None else None)
+            return y if act_mod is None or fuse else act(y, act_mod)
 
         def pool_q(t, key):
             return _pool(t) if acts is None else _pool(Q.quant_act_static(t, acts[key])[0])
 
         def double_q(name, t):
             seq = getattr(m, name)
-            t = act(qc(t, f"{name}_c0q", VALID, seq[0].bias), seq[1])
-            return act(qc(t, f"{name}_c1q", VALID, seq[2].bias), seq[3])
+            t = qc(t, f"{name}_c0q", VALID, seq[0].bias, act_mod=seq[1],
+                   next_key=f"{name}_c1q")
+            return qc(t, f"{name}_c1q", VALID, seq[2].bias, act_mod=seq[3])
 
         # level 1
         c0, p0, c1, p1 = m.convs1
@@ -275,7 +337,7 @@ class QuantUtNet(nn.Module):
         else:
             t = act(_nhwc_conv(xp.permute(0, 2, 3, 1), c0.weight) + c0.bias.to(work), p0)
             if acts is not None:
-                l1 = act(qc(t, "enc1_c1fq", VALID, c1.bias), p1)
+                l1 = qc(t, "enc1_c1fq", VALID, c1.bias, act_mod=p1)
             else:
                 if rec is not None:
                     rec["enc1_c1fq"] = torch.amax(torch.abs(t.to(f32)))
@@ -286,20 +348,22 @@ class QuantUtNet(nn.Module):
         l3 = double_q("convs3", pool_q(l2, "convs3_c0q"))
         l4 = double_q("convs4", pool_q(l3, "convs4_c0q"))
         b = m.bottom
-        t = act(qc(pool_q(l4, "bottom_c0q"), "bottom_c0q", VALID, b[0].bias), b[1])
-        t = act(qc(t, "bottom_c1q", FULL3, b[2].bias), b[3])
+        t = qc(pool_q(l4, "bottom_c0q"), "bottom_c0q", VALID, b[0].bias, act_mod=b[1],
+               next_key="bottom_c1q")
+        t = qc(t, "bottom_c1q", FULL3, b[2].bias, act_mod=b[3], next_key="K0q")
 
         for lvl, (skip, tc) in enumerate(((l4, m.tconvs1), (l3, m.tconvs2),
                                           (l2, m.tconvs3), (l1, m.tconvs4))):
             kq = "K3fq" if lvl == 3 else f"K{lvl}q"
             sq = "w3b4q" if lvl == 3 else f"skip{lvl}q"
             cq = "dec4_c1q" if lvl == 3 else f"dec{lvl}_c1q"
+            nq = ("K1q", "K2q", "K3fq", None)[lvl]
             z_a = qc(t, kq, UP_PADS, dil=2)
-            z_b = qc(skip, sq, FULL3)
             bmap = self._bias_map(lvl, skip.shape[1], skip.shape[2])
-            y = (z_a + z_b + bmap + tc[0].bias.detach().to(f32)).to(work)
-            y = act(y, tc[1])
-            t = act(qc(y, cq, FULL3, tc[2].bias), tc[3])
+            # (z_a + z_b + bmap + b) in fp32, the cast, the activation
+            y = qc(skip, sq, FULL3, tc[0].bias.to(f32), act_mod=tc[1], addend=z_a,
+                   bmap=bmap, next_key=cq)
+            t = qc(y, cq, FULL3, tc[2].bias, act_mod=tc[3], next_key=nq)
 
         final = m.tconvs4[4]
         y = t @ final.weight.detach().reshape(final.out_channels, -1).t().to(work)

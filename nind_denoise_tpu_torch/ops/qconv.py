@@ -20,7 +20,12 @@ values, exact because the largest sum of the forward (1024 channels x 16
 taps x 127 x 127 = 2.6e8) is far below 2^53. ``launches`` counts P1
 launches. ``sw`` may hold two scale vectors (2, Cout), chosen by the
 output column's parity: the level-4 composed conv of the forward, whose
-taps split by that parity (``models/utnet_int8``).
+taps split by that parity (``models/utnet_int8``). Its epilogue options
+(the decoder's fp32 addend and bias map, a one-weight PReLU, the static
+quantize to int8) replace the torch passes the forward ran after it, in
+their order and rounding, so the plain version computes them with those
+very ops. On the card, a Cin that is no multiple of 16 is padded with
+zero channels (exact), since TMA moves whole 16-byte rows.
 """
 
 from __future__ import annotations
@@ -33,12 +38,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv import prelu as _prelu
 
 EPS = 1e-12
 launches = 0
 
 _SIG = {"qconv_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16
-        + [ctypes.c_void_p]}
+        + [ctypes.c_void_p] * 5}
 _OUT_KIND = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -144,6 +150,21 @@ def out_hw(h: int, w: int, kh: int, kw: int, pads, dil: int) -> Tuple[int, int]:
             (w - 1) * dil + 1 + pl + pr - kw + 1)
 
 
+def macs(n, ho, wo, cin, cout, k, dil, pad) -> int:
+    """MACs of one conv without the lhs dilation's zeros: with dilation 2
+    each output pixel reads the ceil or floor of k/2 taps along each axis."""
+    if dil == 1:
+        return n * ho * wo * cout * cin * k * k
+    total = 0
+    for py in (0, 1):
+        for px in (0, 1):
+            ny, nx = (ho - py + 1) // 2, (wo - px + 1) // 2
+            ty = len([a for a in range(k) if (py + a - pad) % 2 == 0])
+            tx = len([b for b in range(k) if (px + b - pad) % 2 == 0])
+            total += ny * nx * ty * tx
+    return n * total * cout * cin
+
+
 def conv_i32_reference(xq: torch.Tensor, wk: torch.Tensor, pads, dil: int
                        ) -> torch.Tensor:
     """Exact int32 conv of int8 NHWC ``xq`` with int8 OHWI ``wk``, as a
@@ -171,34 +192,71 @@ def _scale_grid(sx: torch.Tensor, sw: torch.Tensor, n: int, wo: int) -> torch.Te
 
 
 def dequant_reference(acc: torch.Tensor, sx, sw, bias=None,
-                      out_dtype=torch.float32) -> torch.Tensor:
-    """P1's epilogue, plain: ``float(acc) * (sx * sw)``, ``+ bias`` in fp32,
-    the cast."""
+                      out_dtype=torch.float32, addend=None, bias_map=None,
+                      prelu=None, out_scale=None) -> torch.Tensor:
+    """P1's epilogue, plain, in the order of the torch ops it replaces:
+    ``float(acc) * (sx * sw)``; then in fp32 ``addend +``, ``+ bias_map``,
+    ``+ bias``; the cast to ``out_dtype``; PReLU with the one weight
+    ``prelu`` in that dtype (``ops/conv.prelu``); and with ``out_scale``
+    the static quantize to int8 (``quant_act_static``)."""
     y = acc.to(torch.float32) * _scale_grid(sx, sw, acc.shape[0], acc.shape[2])
+    if addend is not None:
+        y = addend + y
+    if bias_map is not None:
+        y = y + bias_map
     if bias is not None:
         y = y + bias.to(torch.float32)
-    return y.to(out_dtype)
+    y = y.to(out_dtype)
+    if prelu is not None:
+        y = _prelu(y, prelu)
+    if out_scale is not None:
+        y = quant_act_static(y, out_scale)[0]
+    return y
 
 
 def conv_int8_reference(xq, wk, pads, dil, sx=None, sw=None, bias=None,
-                        out_dtype=torch.float32) -> torch.Tensor:
+                        out_dtype=torch.float32, addend=None, bias_map=None,
+                        prelu=None, out_scale=None) -> torch.Tensor:
     """Plain PyTorch version of P1: the exact int32 conv, then for a float
-    ``out_dtype`` ``dequant_reference``."""
+    ``out_dtype`` ``dequant_reference`` with the same options."""
     acc = conv_i32_reference(xq, wk, pads, dil)
     if out_dtype == torch.int32:
         return acc
-    return dequant_reference(acc, sx, sw, bias, out_dtype)
+    return dequant_reference(acc, sx, sw, bias, out_dtype, addend, bias_map, prelu,
+                             out_scale)
+
+
+def _check_f32(name: str, t, shape, dev) -> torch.Tensor:
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+        raise TypeError(f"conv_int8: {name} must be a float32 tensor")
+    if t.device != dev:
+        raise ValueError(f"conv_int8: {name} on {t.device}, the input on {dev}")
+    if tuple(t.shape) not in shape:
+        raise ValueError(f"conv_int8: {name} has shape {tuple(t.shape)}, "
+                         f"expected one of {sorted(shape)}")
+    return t.contiguous()
 
 
 def conv_int8(xq: torch.Tensor, wk: torch.Tensor, pads, dil: int = 1,
               sx: Optional[torch.Tensor] = None, sw: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              out_dtype: torch.dtype = torch.float32,
+              addend: Optional[torch.Tensor] = None,
+              bias_map: Optional[torch.Tensor] = None,
+              prelu: Optional[torch.Tensor] = None,
+              out_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """P1: int8 NHWC ``xq`` (N, H, W, Cin) conv int8 OHWI ``wk`` (Cout,
     KH, KW, Cin), zero padding ``pads`` (top, bottom, left, right) and lhs
     dilation ``dil`` (1 or 2) -> NHWC ``out_dtype``: int32 sums, or fp32 /
     bf16 dequantized with ``sx`` (N or 1 values) and ``sw`` ((Cout,) or
-    (2, Cout) by output-column parity), plus ``bias`` (Cout,) if given."""
+    (2, Cout) by output-column parity), plus ``bias`` (Cout,) if given.
+
+    Epilogue options of a float output, applied as ``dequant_reference``
+    orders them: ``addend`` (N, Ho, Wo, Cout) fp32 and ``bias_map``
+    (1, Ho, Wo, Cout) fp32, summed in fp32 before ``bias`` (the decoder's
+    ``z_a + z_b + bias_map + b``); ``prelu``, the one weight of a PReLU
+    applied after the cast; ``out_scale``, one fp32 scale: the result is
+    then that value quantized to int8 (``quant_act_static``)."""
     if xq.dim() != 4 or wk.dim() != 4 or xq.shape[3] != wk.shape[3]:
         raise ValueError(f"conv_int8: need (N,H,W,C) and (O,KH,KW,C), got "
                          f"{tuple(xq.shape)} and {tuple(wk.shape)}")
@@ -213,43 +271,70 @@ def conv_int8(xq: torch.Tensor, wk: torch.Tensor, pads, dil: int = 1,
     ho, wo = out_hw(h, w, kh, kw, pads, dil)
     if ho <= 0 or wo <= 0:
         raise ValueError(f"conv_int8: empty output {ho}x{wo}")
+    dev = xq.device
+    if wk.device != dev:
+        raise ValueError("conv_int8: weights and input on different devices")
     if out_dtype != torch.int32:
         if sx is None or sw is None:
             raise ValueError("conv_int8: a float output needs sx and sw")
         if sx.numel() not in (1, n) or sw.shape not in ((cout,), (2, cout)):
             raise ValueError(f"conv_int8: sx {tuple(sx.shape)} / sw "
                              f"{tuple(sw.shape)} do not fit N={n}, Cout={cout}")
-    if xq.device.type == "cpu":
-        return conv_int8_reference(xq, wk, pads, dil, sx, sw, bias, out_dtype)
-    if xq.device.type != "cuda":
-        raise ValueError(f"conv_int8: unsupported device {xq.device}")
-    dev = xq.device
-    xq, wk = xq.contiguous(), wk.contiguous()
-    if wk.device != dev:
-        raise ValueError("conv_int8: weights and input on different devices")
-    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=dev)
-    ptrs = [0, 0, 0]
+    elif any(t is not None for t in (addend, bias_map, prelu, out_scale)):
+        raise ValueError("conv_int8: epilogue options need a float out_dtype")
+    if addend is not None:
+        addend = _check_f32("addend", addend, {(n, ho, wo, cout)}, dev)
+    if bias_map is not None:
+        bias_map = _check_f32("bias_map", bias_map, {(1, ho, wo, cout), (ho, wo, cout)},
+                              dev).reshape(1, ho, wo, cout)
+    if prelu is not None:
+        prelu = _check_f32("prelu", prelu.detach(), {(1,), ()}, dev)
+    if out_scale is not None:
+        out_scale = _check_f32("out_scale", out_scale, {(1,), ()}, dev)
+    if dev.type == "cpu":
+        return conv_int8_reference(xq, wk, pads, dil, sx, sw, bias, out_dtype, addend,
+                                   bias_map, prelu, out_scale)
+    if dev.type != "cuda":
+        raise ValueError(f"conv_int8: unsupported device {dev}")
+    if cin % 16:  # TMA rows are whole 16-byte units: zero channels are exact
+        cpad = 16 - cin % 16
+        xq, wk = F.pad(xq, (0, cpad)), F.pad(wk, (0, cpad))
+        cin += cpad
+    xq, wk = _aligned(xq), _aligned(wk)
+    out = torch.empty((n, ho, wo, cout),
+                      dtype=torch.int8 if out_scale is not None else out_dtype, device=dev)
+    ptrs = [0] * 7
     keep = []
     if out_dtype != torch.int32:
         for i, t in enumerate((sx, sw, bias)):
-            if t is None:
-                continue
-            t = t.to(dev, torch.float32).contiguous()
-            keep.append(t)
-            ptrs[i] = t.data_ptr()
-    vec = int(cin % 16 == 0 and xq.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0)
+            if t is not None:
+                t = t.to(dev, torch.float32).contiguous()
+                keep.append(t)
+                ptrs[i] = t.data_ptr()
+        if prelu is not None:  # the weight as the work dtype rounds it
+            prelu = prelu.reshape(1).to(out_dtype).to(torch.float32)
+            keep.append(prelu)
+        for i, t in enumerate((addend, bias_map, prelu, out_scale)):
+            if t is not None:
+                ptrs[3 + i] = t.data_ptr()
     pt, _, pl, _ = pads
     lib = _build.library("qconv", _SIG)
-    err = lib.qconv_launch(xq.data_ptr(), wk.data_ptr(), out.data_ptr(), *ptrs,
+    err = lib.qconv_launch(xq.data_ptr(), wk.data_ptr(), out.data_ptr(), *ptrs[:3],
                            n, h, w, cin, ho, wo, cout, kh, kw, pt, pl, dil,
                            int(sx is not None and sx.numel() == n and n > 1),
                            int(sw is not None and sw.dim() == 2),
-                           _OUT_KIND[out_dtype], vec,
+                           _OUT_KIND[out_dtype], 1, *ptrs[3:],
                            torch.cuda.current_stream(dev).cuda_stream)
     global launches
     launches += 1
     _build.check(err, "qconv")
     return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, on a 16-byte boundary (TMA's rule for a global base)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # -- the JAX package's entry points (HWIO weights) --------------------------------

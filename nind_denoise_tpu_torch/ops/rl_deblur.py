@@ -25,6 +25,13 @@ kernel or its XLA path:
   launches of kernel P2), so four P2 launches an iteration. sigma is
   clamped at 0.1 there, so sigma 0 gives no NaN.
 
+``impl`` takes the JAX package's ``rl_deblur`` choices (the CLI's
+``--rl-impl``): ``"auto"`` is the choice above; ``"xla"`` the separable
+body (``separable_k3`` or ``separable_plain`` by R, or ``deriche``);
+``"pallas"`` the fused kernel K1, which raises ``NotImplementedError``
+where K1 cannot run (dt != 1, ``gmic_fast``, R > 32), as the JAX
+package's Pallas path raises outside its limits.
+
 On the CPU every route runs the plain versions of its kernels; the
 gaussian dt-1 routes all equal ``rl_fused.rl_iter_reference`` iterated,
 bit for bit. ``routes`` counts the calls per route.
@@ -40,6 +47,7 @@ import torch
 from . import deriche, gauss_blur, rl_fused
 
 ROUTES = ("fused", "separable_k3", "separable_plain", "deriche")
+IMPLS = ("auto", "xla", "pallas")
 routes = dict.fromkeys(ROUTES, 0)
 
 
@@ -56,12 +64,23 @@ def gaussian_taps_np(sigma: float) -> np.ndarray:
     return k / k.sum()
 
 
-def route_for(radius: int, psf: str = "gaussian", dt: float = 1.0) -> str:
-    """The RL route for PSF radius ``radius``, ``psf`` and ``dt``; see the
-    module doc. K1 computes dt 1 only, as the Pallas kernel does."""
+def route_for(radius: int, psf: str = "gaussian", dt: float = 1.0,
+              impl: str = "auto") -> str:
+    """The RL route for PSF radius ``radius``, ``psf``, ``dt`` and
+    ``impl``; see the module doc. K1 computes dt 1 only, as the Pallas
+    kernel does."""
+    if impl not in IMPLS:
+        raise ValueError(f"rl_deblur: unknown impl {impl!r}")
+    fused_ok = psf == "gaussian" and dt == 1.0 and radius <= rl_fused.MAX_RADIUS
+    if impl == "pallas":
+        if not fused_ok:
+            raise NotImplementedError(
+                f"the fused RL kernel takes psf='gaussian', dt=1 and R <= "
+                f"{rl_fused.MAX_RADIUS} only (got psf={psf!r}, dt={dt}, R={radius})")
+        return "fused"
     if psf == "gmic_fast":
         return "deriche"
-    if dt == 1.0 and radius <= rl_fused.MAX_RADIUS:
+    if fused_ok and impl == "auto":
         return "fused"
     if radius <= gauss_blur.MAX_RADIUS:
         return "separable_k3"
@@ -69,7 +88,8 @@ def route_for(radius: int, psf: str = "gaussian", dt: float = 1.0) -> str:
 
 
 def rl_deblur(img: torch.Tensor, sigma: float = 1.0, iterations: int = 10,
-              dt: float = 1.0, psf: str = "gaussian") -> torch.Tensor:
+              dt: float = 1.0, psf: str = "gaussian", impl: str = "auto"
+              ) -> torch.Tensor:
     """Richardson-Lucy deconvolution of (H, W, C) or (N, H, W, C); returns
     the same shape in float32. Planes are independent, so a batch member
     equals its single-image run bit for bit."""
@@ -82,7 +102,7 @@ def rl_deblur(img: torch.Tensor, sigma: float = 1.0, iterations: int = 10,
     d = torch.clamp(x.permute(0, 3, 1, 2).reshape(n * c, h, w)
                     .to(torch.float32), min=0.0).contiguous()
     dt = float(dt)
-    route = route_for(psf_radius(sigma), psf, dt)
+    route = route_for(psf_radius(sigma), psf, dt, impl)
     routes[route] += 1
     # two u buffers, swapped each iteration; d stays read-only
     bufs = ([torch.empty_like(d), torch.empty_like(d)]
@@ -117,21 +137,25 @@ def gmic_quantize_u8(u: torch.Tensor) -> torch.Tensor:
 
 
 def rl_to_u8_device(img01: torch.Tensor, sigma: float = 1.0,
-                    iterations: int = 10, psf: str = "gaussian") -> torch.Tensor:
+                    iterations: int = 10, psf: str = "gaussian",
+                    impl: str = "auto") -> torch.Tensor:
     """RL deblur + gmic quantize on the tensor's device: [0, 1] HWC or
     NHWC in, uint8 of the same shape out. The input is clipped at 0
     first."""
     img = torch.clamp(img01.to(torch.float32), min=0)
-    return gmic_quantize_u8(rl_deblur(img, float(sigma), int(iterations), psf=psf))
+    return gmic_quantize_u8(rl_deblur(img, float(sigma), int(iterations), psf=psf,
+                                      impl=impl))
 
 
 def rl_deblur_to_uint8(img01: np.ndarray, sigma: float = 1.0,
                        iterations: int = 10, dt: float = 1.0,
-                       device=None, psf: str = "gaussian") -> np.ndarray:
+                       device=None, psf: str = "gaussian",
+                       impl: str = "auto") -> np.ndarray:
     """Host [0, 1] HWC image -> uint8 HWC: RL deblur, then the gmic
     quantize. Runs on ``device`` (CUDA unless the CPU is asked for)."""
     from ..utils.device import resolve_device
 
     x = torch.from_numpy(np.ascontiguousarray(img01, np.float32))
-    u = rl_deblur(x.to(resolve_device(device)), sigma, iterations, dt, psf=psf)
+    u = rl_deblur(x.to(resolve_device(device)), sigma, iterations, dt, psf=psf,
+                  impl=impl)
     return gmic_quantize_u8(u).cpu().numpy()

@@ -29,9 +29,11 @@ exif, and develop and stage2 where darktable runs.
 ``--rl-psf gmic_fast`` runs RL with the Deriche IIR (kernel P2), and
 ``--compute_dtype int8|int8_static`` the quantized forward (kernel P1);
 ``int8_static`` recalibrates its activation scales on each image, as the
-JAX CLI's serial path does. The JAX CLI's ``--rl-impl`` (its choices name
-the TPU kernels) and ``--devices`` (ROADMAP queue 1 item 9) are not flags
-here. The model table's download is left out: a missing
+JAX CLI's serial path does. ``--rl-impl auto|xla|pallas`` keeps the JAX
+CLI's choices: ``auto`` picks the route by sigma, psf and dt, ``xla`` the
+separable body, ``pallas`` the fused RL kernel K1, which refuses dt != 1,
+``gmic_fast`` and radii above 32 (``ops/rl_deblur.route_for``). The JAX
+CLI's ``--devices`` (ROADMAP queue 1 item 9) is not a flag here. The model table's download is left out: a missing
 checkpoint raises ``FileNotFoundError`` naming its path and the table's URL.
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_cli img.tif --tiff-input -o out/
@@ -82,6 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Input is already a stage-1 TIFF")
     p.add_argument("--sigma", default="1", help="RL-deblur sigma")
     p.add_argument("--iterations", default="10", help="RL-deblur iterations")
+    p.add_argument("--rl-impl", default="auto",
+                   choices=list(rl_deblur.IMPLS), dest="rl_impl",
+                   help="RL route: auto (by sigma, psf and dt), xla (the "
+                        "separable body) or pallas (the fused kernel K1; "
+                        "dt 1, gaussian, radius <= 32 only)")
     p.add_argument("--rl-psf", default="gaussian",
                    choices=["gaussian", "gmic_fast"], dest="rl_psf",
                    help="RL blur PSF: the exact truncated-FIR gaussian, or "
@@ -243,11 +250,11 @@ def _encode_u8(u8_hwc: np.ndarray, out_fpath: pathlib.Path, quality: str) -> Non
 def _rl_deblur_ondevice(in_fpath: pathlib.Path, out_fpath: pathlib.Path,
                         sigma: int, iterations: int, quality: str,
                         verbose: bool = False, device=None,
-                        psf: str = "gaussian") -> None:
+                        psf: str = "gaussian", impl: str = "auto") -> None:
     """RL from the stage-2 file on the device, then the gmic quantize."""
     img = imgio.load_img(str(in_fpath)).transpose(1, 2, 0)  # [0,1] HWC
     _encode_u8(rl_deblur.rl_deblur_to_uint8(img, float(sigma), int(iterations),
-                                            device=device, psf=psf),
+                                            device=device, psf=psf, impl=impl),
                out_fpath, quality)
     if verbose:
         print(f"Applied on-device RL-deblur to: {out_fpath}")
@@ -360,7 +367,7 @@ def denoise_file(args, input_path: pathlib.Path,
         with timers.stage("rl+encode"):
             if rldeblur:
                 u8 = rl_deblur.rl_to_u8_device(denoised01, sigma, iterations,
-                                               psf=args.rl_psf)
+                                               psf=args.rl_psf, impl=args.rl_impl)
                 _encode_u8(u8.cpu().numpy(), outpath, quality)
             elif outpath.suffix.lower() == ".tiff":
                 imgio.save_img(denoised01.cpu().numpy().transpose(2, 0, 1), str(outpath))
@@ -410,7 +417,7 @@ def denoise_file(args, input_path: pathlib.Path,
             else:
                 _rl_deblur_ondevice(s2_fpath, outpath, sigma, iterations, quality,
                                     verbose=args.verbose, device=args.device,
-                                    psf=args.rl_psf)
+                                    psf=args.rl_psf, impl=args.rl_impl)
 
     with timers.stage("exif"):
         exif_mod.clone_exif(s1_fpath, outpath, verbose=args.verbose)

@@ -13,8 +13,8 @@ unless ``--device cpu``).
 
 ``--compute_dtype int8|int8_static`` runs the quantized forward (kernel
 P1); ``int8_static`` calibrates its static scales on crops of the input
-(``ops/qconv.calib_from_image``), as the JAX CLI does. ``--whole_image``
-with an int8 mode exits with the JAX CLI's message.
+(``ops/qconv.calib_from_image``), as the JAX CLI does, on the whole
+input in ``--whole_image`` mode.
 
 Not ported, and raising ``NotImplementedError`` rather than being ignored:
 more than one device (``--devices`` > 1, ROADMAP queue 1 item 9),
@@ -127,11 +127,6 @@ def check_ported(args) -> None:
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
-    if args.whole_image and args.compute_dtype.startswith("int8"):
-        raise SystemExit(
-            "--whole_image does not support --compute_dtype "
-            "int8/int8_static; drop --whole_image (the tiled path supports "
-            "it) or use --compute_dtype bfloat16/float32")
     if args.trace_dir:
         raise NotImplementedError("--trace_dir is not ported yet (ROADMAP queue 1 item 10)")
     if args.g_network != "UtNet":
@@ -187,7 +182,11 @@ def run(args, timers: Optional[StageTimers] = None) -> str:
         with timers.stage("decode"):
             img = imgio.load_img(args.input)
         with timers.stage("denoise"):
-            out_chw = build_engine(args.cs, args.ucs).denoise_whole(img, pad=args.pad or 0)
+            # int8_static: static scales from crops of the whole input
+            calib = (calib_from_image(img.transpose(1, 2, 0))
+                     if args.compute_dtype == "int8_static" else None)
+            out_chw = build_engine(args.cs, args.ucs, calib).denoise_whole(
+                img, pad=args.pad or 0)
             imgio.save_img(out_chw, args.output)
     else:
         with timers.stage("decode"):

@@ -4,7 +4,9 @@ against the JAX package on the CPU: ``route_for`` at the limits of K1
 ``rl_deblur`` against ``rl_deblur(impl='xla')``, K3's planar entry
 ``blur_planes`` against its HWC plain version and, at the radii where
 K3's geometry changes, against the JAX package's blurs, the route counter,
-and the breakdown tools' source handling."""
+the breakdown tools' source handling, and ``--rl-impl`` (the JAX CLI's
+``auto|xla|pallas``) mapped onto the routes, with ``pallas`` refused where
+the fused kernel cannot run."""
 
 import numpy as np
 import pytest
@@ -151,3 +153,66 @@ def test_gauss_blur_breakdown_sources_apply_to_the_kernel():
     with pytest.raises(RuntimeError, match="lacks"):
         B.parent_source(src.replace("int gauss_blur_planes_launch(", "int blur_planes("))
     assert set(B.REGISTER_RADII) <= set(range(1, 65))
+
+
+# --rl-impl: the JAX CLI's choices mapped onto the port's routes
+@pytest.mark.parametrize("impl,radius,psf,dt,route", [
+    ("auto", 3, "gaussian", 1.0, "fused"), ("auto", 3, "gaussian", 0.5, "separable_k3"),
+    ("xla", 3, "gaussian", 1.0, "separable_k3"), ("xla", 32, "gaussian", 1.0, "separable_k3"),
+    ("xla", 65, "gaussian", 1.0, "separable_plain"), ("xla", 3, "gmic_fast", 1.0, "deriche"),
+    ("pallas", 3, "gaussian", 1.0, "fused"), ("pallas", 32, "gaussian", 1.0, "fused")])
+def test_route_for_impl(impl, radius, psf, dt, route):
+    assert trl.route_for(radius, psf, dt, impl) == route
+
+
+@pytest.mark.parametrize("radius,psf,dt", [
+    (3, "gaussian", 0.5), (3, "gmic_fast", 1.0), (33, "gaussian", 1.0)])
+def test_route_for_pallas_refuses_what_k1_cannot_run(radius, psf, dt):
+    with pytest.raises(NotImplementedError, match="fused RL kernel"):
+        trl.route_for(radius, psf, dt, "pallas")
+    with pytest.raises(ValueError, match="unknown impl"):
+        trl.route_for(radius, psf, dt, "triton")
+
+
+def test_rl_impl_xla_equals_the_jax_xla_path():
+    """``impl='xla'`` at sigma 1 takes the separable body, not K1, and agrees
+    with the JAX package's xla path."""
+    img = _img((21, 26, 3), 41)
+    before = dict(trl.routes)
+    got = trl.rl_deblur(torch.from_numpy(img), 1.0, 5, impl="xla").numpy()
+    assert trl.routes["separable_k3"] == before["separable_k3"] + 1
+    assert trl.routes["fused"] == before["fused"]
+    ref = np.asarray(jrl.rl_deblur(jnp.asarray(img), 1.0, 5, impl="xla"))
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("flags,routed", [
+    ([], "fused"), (["--rl-impl", "xla"], "separable_k3"), (["--rl-impl", "pallas"], "fused"),
+    (["--rl-impl", "pallas", "--rl-psf", "gmic_fast"], NotImplementedError)])
+def test_denoise_cli_rl_impl(tmp_path, flags, routed):
+    """``denoise --rl-impl`` parses as in the JAX CLI and reaches the RL
+    route; ``pallas`` where K1 cannot run raises."""
+    import cv2
+
+    from nind_denoise_tpu.pipeline import denoise_cli as jax_cli
+    from nind_denoise_tpu_torch.pipeline import denoise_cli as port_cli
+    from nind_denoise_tpu_torch.tools.fixtures import write_jax_checkpoint
+
+    assert jax_cli.build_parser().parse_args(["x"] + flags).rl_impl == \
+        port_cli.build_parser().parse_args(["x"] + flags).rl_impl
+    ckpt = str(tmp_path / "generator_1.npz")
+    write_jax_checkpoint(ckpt, 8, seed=4)
+    tif = str(tmp_path / "img.tif")
+    assert cv2.imwrite(tif, (np.random.default_rng(4).random((40, 52, 3)) * 65535)
+                       .astype(np.uint16))
+    (tmp_path / "out").mkdir()
+    argv = [tif, "--tiff-input", "--model_path", ckpt, "-o", str(tmp_path / "out"),
+            "--device", "cpu", "--cs", "104", "--ucs", "88", "--compute_dtype",
+            "float32"] + flags
+    before = dict(trl.routes)
+    if routed is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="fused RL kernel"):
+            port_cli.main(argv)
+        return
+    port_cli.main(argv)
+    assert trl.routes[routed] == before[routed] + 1
