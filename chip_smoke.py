@@ -87,6 +87,17 @@ limit as nvidia-smi reports them):
 16. gmic_fast_cli and rl_dt: ``denoise_cli --rl-psf gmic_fast`` at 6 MP
    (40 P2 launches, no K1) and RL with dt 0.5 (20 K3 launches, no K1)
    bit-equal to the plain iteration.
+17. train: ``train.loop`` with ``train_conf_utnet_std.yaml`` (UtNet funit 64,
+   batch 30, 184 px crops, MS-SSIM) for two epochs on seeded synthetic
+   16-bit crops in the NIND layout: finite losses, ``trainres.json`` with
+   ``best_epoch``, a checkpoint that ``load_generator`` loads and that
+   resumes for one more epoch, and K2 launched once per validation pair and
+   validation (training steps take cuDNN), and K2 at that fp32 input against
+   its plain version; warm step times in fp32 and bf16 (ms a step, crops/s,
+   peak memory, top device kernels); one fp32 step on the card against the
+   CPU at batch 2, resumed from the run's checkpoint (weights and optimizer
+   state), within the TRAIN_* tolerances, and the same step from a fresh
+   optimizer state reported beside it.
 
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
@@ -116,7 +127,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # the product CLIs' phases (cli_plugin, cli_raw, cli_dir, whole_image): a
 # 6 MP image through UtNet at the product width
 HW, FUNIT = (2000, 3000), 64
-# the int8 and RL-variant phases' device, and the batch and tile edge of
+# the int8, RL-variant and train phases' device, and the batch and tile edge of
 # the int8 forward's timing (a CPU rehearsal makes these small)
 DEV, FWD = "cuda", (8, 504)
 # the int8 CLI phase's PSNRs against float32 on its seeded image and
@@ -1664,6 +1675,255 @@ def phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt):
     return {"gmic_fast_cli": gmic, "rl_dt": dt_launches}
 
 
+# -- generator training ----------------------------------------------------
+
+# the train phase's tolerances for one fp32 step (TF32 off) from the same
+# weights and batch on the card and on the CPU, set before its first run:
+# the loss to 1e-5; the updated parameters: none apart by more than the
+# learning rate, and at most 0.1 % of them by more than 1 % of it. The
+# gradient is held as a whole, its difference to 1e-3 of its norm: a tensor
+# whose gradient is a cancelling sum (a bias, a PReLU slope) is
+# ill-conditioned on either device, so each device's per-tensor error
+# against a float64 step is reported, not held.
+# The held step resumes the checkpoint as the trainer does (its weights and
+# its AMSGrad moments and counts). From a fresh optimizer state, AMSGrad's
+# first step moves each element by lr * g / (|g| + 1e-8), about the learning
+# rate whatever the gradient's size, so an element whose gradient is
+# rounding noise near 1e-8 moves by up to twice the learning rate apart on
+# two devices; the CPU's own fp32 step lies that far from the float64 step
+# on some trained weights. That step is reported beside the held one, not
+# held.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_SHARE = 1e-5, 1e-3, 1e-3
+
+
+def write_train_crops(root, val_yaml, scenes, crops, size=192, seed=0):
+    """Seeded synthetic crops in the NIND layout
+    (``<root>/<scene>/ISO<v>/<DS>_<scene>_<iso>_<x>_<y>_<ucs>.png``, 16 bit):
+    smooth images, clean at ISO200 and with Gaussian noise at ISO3200;
+    ``val_yaml`` lists three (clean, noisy) pairs."""
+    import cv2
+    import numpy as np
+    import yaml
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for s in range(scenes):
+        for x in range(crops):
+            clean = gaussian_filter(rng.random((size, size, 3), np.float32), (3, 3, 0))
+            clean = (clean - clean.min()) / np.ptp(clean)
+            for iso, sigma in (("ISO200", 0.0), ("ISO3200", 0.08)):
+                d = os.path.join(root, f"scene{s}", iso)
+                os.makedirs(d, exist_ok=True)
+                img = np.clip(clean + rng.normal(0, sigma, clean.shape), 0, 1)
+                path = os.path.join(d, f"SYN_scene{s}_{iso}_{x * size}_0_{size}.png")
+                check(cv2.imwrite(path, (img * 65535).astype(np.uint16)), path)
+            pairs.append([os.path.join(root, f"scene{s}", iso,
+                                       f"SYN_scene{s}_{iso}_{x * size}_0_{size}.png")
+                          for iso in ("ISO200", "ISO3200")])
+    with open(val_yaml, "w") as f:
+        yaml.safe_dump(pairs[:3], f)
+
+
+def train_batch(torch, root, batch, cs):
+    """The first batch the trainer's loader gives for the synthetic crops,
+    as NCHW float32 CPU tensors (clean, noisy)."""
+    from nind_denoise_tpu_torch.train import dataset as ds_mod
+
+    loader = ds_mod.Loader(ds_mod.DenoisingDataset([root], cs=cs, seed=0), batch,
+                           num_threads=1, seed=0)
+    clean, noisy = next(iter(loader))
+    return (torch.from_numpy(clean).permute(0, 3, 1, 2).contiguous(),
+            torch.from_numpy(noisy).permute(0, 3, 1, 2).contiguous())
+
+
+def train_step_times(torch, ckpt, clean, noisy, reps=5):
+    """Warm ``utnet_std`` steps (MS-SSIM, AMSGrad, lr 1e-4, beta1 0.75)
+    from ``ckpt`` on one batch, fp32 (TF32 off) and bf16: ms a step from
+    CUDA events, crops/s, and the peak memory allocated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.train import steps
+
+    clean, noisy = clean.to(DEV), noisy.to(DEV)
+    out = {}
+    for dtype, apply in (("float32", steps.plain_apply), ("bfloat16", steps.bf16_apply)):
+        model = params_io.load_generator(ckpt).to(DEV)
+        state = steps.TrainState(model, steps.make_optimizer(model, 1e-4, 0.75))
+        step = steps.make_generator_train_step(apply, {"MSSSIM": 1}, clean.shape[-1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: step(state, clean, noisy), reps)
+        peak = torch.cuda.max_memory_allocated()
+        loss = float(step(state, clean, noisy)["weighted"])
+        check(0 < loss < 1, f"train step {dtype}: loss {loss}")
+        # where a step's device time goes: two more steps under the profiler
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(state, clean, noisy)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            # device ranges of record_function (the optimizer's step) hold
+            # kernels counted on their own
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+                by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.self_device_time_total
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[dtype] = {"ms_per_step": ms, "crops_per_s": clean.shape[0] / ms * 1e3,
+                      "peak_memory_allocated_gib": peak / 2 ** 30, "loss": loss,
+                      "device_ms_per_step": sum(by_name.values()) / 2e3,
+                      "top_device_ms_per_step": {k: v / 2e3 for k, v in top}}
+        del model, state
+    return out
+
+
+def train_card_vs_cpu(torch, ckpt, clean, noisy):
+    """One fp32 step on the same batch on the card and on the CPU from
+    ``ckpt`` resumed as the trainer resumes it (weights, AMSGrad moments,
+    counts and learning rate), held to the TRAIN_* tolerances; the same
+    step with the network in float64 on the CPU (its losses cast to
+    float32, as the JAX package's do), against which each device's
+    per-tensor gradient error is reported; and, reported only, the three
+    steps again from a fresh optimizer state (the first step's noise
+    floor: each device's parameters against the float64 step's)."""
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.train import loop, steps
+
+    tree = params_io.load_npz(ckpt)
+    res = {}
+    for resume in (True, False):
+        for dev, dt in ((DEV, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+            model = params_io.load_generator(ckpt).to(dev, dt)
+            opt = steps.make_optimizer(model, 1e-4, 0.75)
+            if resume:
+                loop.GeneratorWrapper.restore_opt(opt, model, tree["opt"], tree["params"])
+            state = steps.TrainState(model, opt)
+            step = steps.make_generator_train_step(steps.plain_apply, {"MSSSIM": 1},
+                                                   clean.shape[-1])
+            m = step(state, clean.to(dev, dt), noisy.to(dev, dt))
+            res[resume, dev, dt] = (float(m["weighted"]),
+                                    [p.grad.cpu().double() for p in model.parameters()],
+                                    [p.detach().cpu().double() for p in model.parameters()],
+                                    opt.hyper["learning_rate"])
+
+    def param_diff(a, b):
+        return torch.cat([(x - y).abs().flatten() for x, y in zip(a[2], b[2])])
+
+    card, cpu, f64 = (res[True, d, t] for d, t in ((DEV, torch.float32),
+                                                   ("cpu", torch.float32),
+                                                   ("cpu", torch.float64)))
+    (lg, gg, _, lr), (lc, gc, _, _) = card, cpu
+    loss_diff = abs(lg - lc)
+    flat = torch.cat([g.flatten() for g in gc])
+    grad_norm_rel = (torch.cat([g.flatten() for g in gg]) - flat).norm().item() / flat.norm().item()
+
+    def worst(g):
+        return max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                   for a, b in zip(g, f64[1]))
+
+    dp = param_diff(card, cpu)
+    share = (dp > lr / 100).float().mean().item()
+    lr0 = res[False, "cpu", torch.float32][3]
+    fresh = {f"{a}_vs_{b}": {"param_max_abs_diff": d.max().item(),
+                             "param_share_over_lr_1pct": (d > lr0 / 100).float().mean().item()}
+             for a, b, d in (("cuda", "cpu", param_diff(res[False, DEV, torch.float32],
+                                                        res[False, "cpu", torch.float32])),
+                             ("cpu", "float64", param_diff(res[False, "cpu", torch.float32],
+                                                           res[False, "cpu", torch.float64])),
+                             ("cuda", "float64", param_diff(res[False, DEV, torch.float32],
+                                                            res[False, "cpu", torch.float64])))}
+    rec = {"shape": list(clean.shape), "resumed_from": os.path.basename(ckpt),
+           "checkpoint_epoch": tree.get("epoch"), "lr": lr, "loss_cuda": lg, "loss_cpu": lc,
+           "loss_float64": f64[0], "loss_abs_diff": loss_diff,
+           "grad_norm": flat.norm().item(), "grad_norm_rel_diff": grad_norm_rel,
+           "grad_worst_tensor_rel_err_vs_float64_net": {"cuda": worst(gg), "cpu": worst(gc)},
+           "param_max_abs_diff": dp.max().item(), "param_share_over_lr_1pct": share,
+           "param_max_abs_diff_vs_float64": {"cuda": param_diff(card, f64).max().item(),
+                                             "cpu": param_diff(cpu, f64).max().item()},
+           "tolerance": {"loss": TRAIN_LOSS_TOL, "grad_norm_rel": TRAIN_GRAD_TOL,
+                         "param_max": lr, "param_share_over_lr_1pct": TRAIN_PARAM_SHARE},
+           "fresh_optimizer_first_step_not_held": fresh}
+    check(0 < lc < 1 and rec["grad_norm"] > 0, f"train card vs CPU: a degenerate step {rec}")
+    check(math.isfinite(lg) and loss_diff <= TRAIN_LOSS_TOL, f"train card vs CPU: loss {rec}")
+    check(grad_norm_rel <= TRAIN_GRAD_TOL, f"train card vs CPU: gradients {rec}")
+    check(dp.max().item() <= lr and share <= TRAIN_PARAM_SHARE,
+          f"train card vs CPU: parameters {rec}")
+    return rec
+
+
+def phase_train(torch, card, tmp, kernel_mods, funit=64, batch=30, cs=184, extra=()):
+    """``train.loop`` with ``train_conf_utnet_std.yaml`` (funit 64, batch 30,
+    184 px crops, MS-SSIM, beta1 0.75, lr 1e-4) for two epochs on seeded
+    synthetic crops, one loader thread; then a resume from its last
+    checkpoint for one more epoch; warm step times in fp32 and bf16 from
+    that checkpoint on the loader's first batch; and one step resumed from
+    that checkpoint on the card against the CPU on two of its crops.
+    Training steps run
+    level 1 through cuDNN (K2 has no backward); each validation forward
+    launches K2 once. Returns the two-epoch run's counts."""
+    import json as _json
+
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.ops import enc1 as E
+    from nind_denoise_tpu_torch.train import loop
+
+    t0 = time.time()
+    root, val = os.path.join(tmp, "train", "SYN_192_184"), os.path.join(tmp, "train", "val.yaml")
+    write_train_crops(root, val, scenes=4, crops=16)
+    n_items, n_val = 4 * 16, 3
+    cfg = os.path.join(ROOT, "nind_denoise_tpu_torch", "configs", "train_conf_utnet_std.yaml")
+    argv = ["--config", cfg, "--train_data", root, "--validation_set_yaml", val,
+            "--test_reserve", "0", "--threads", "1", "--device", DEV, *extra]
+    models = os.path.join(tmp, "train", "models")
+    # the K2 input of a validation forward, kept while the run launches it
+    rec = record_inputs(E, "enc1", lambda x, *w: (tuple(x.shape), str(x.dtype)))
+    try:
+        exp, launches = counted(torch, kernel_mods, lambda: cli_run(
+            loop, argv + ["--epochs", "3", "--models_dpath", models])[0])
+    finally:
+        rec["restore"]()
+    with open(os.path.join(exp, "trainres.json")) as f:
+        res = _json.load(f)
+    epochs = {e: res[str(e)] for e in (0, 1, 2)}
+    check(all(math.isfinite(v) for r in epochs.values() for v in r.values()),
+          f"train: non-finite results {epochs}")
+    check("train_weighted_loss" in epochs[2] and "best_epoch" in res, f"train: {res}")
+    check(launches["enc1"] == n_val * 3 and sum(launches.values()) == launches["enc1"],
+          f"train: launches {launches}, expected enc1 {n_val * 3} (validation only)")
+    kept = sorted(f for f in os.listdir(exp) if f.startswith("generator_"))
+    check(kept, f"train: no checkpoint in {os.listdir(exp)}")
+    ckpt = os.path.join(exp, kept[-1])
+    model = params_io.load_generator(ckpt)
+    check(model.convs1[0].out_channels == funit, "train: checkpoint width")
+    last = params_io.load_npz(ckpt)["epoch"]
+    resumed, resume_launches = counted(torch, kernel_mods, lambda: cli_run(
+        loop, argv + ["--epochs", str(last + 2), "--g_model_path", ckpt,
+                      "--models_dpath", os.path.join(tmp, "train", "resumed")])[0])
+    with open(os.path.join(resumed, "trainres.json")) as f:
+        res2 = _json.load(f)
+    after = res2.get(str(last + 1), {})
+    check(math.isfinite(after.get("train_weighted_loss", math.nan)),
+          f"train resume: {res2}")
+    check(resume_launches["enc1"] == n_val * 2, f"train resume: launches {resume_launches}")
+    cli_s = time.time() - t0
+
+    (key, args), = rec["seen"].items()
+    with torch.inference_mode():
+        k2 = enc1_record(torch, E, args, 10)
+    clean, noisy = train_batch(torch, root, batch, cs)
+    times = train_step_times(torch, ckpt, clean, noisy)
+    cpu = train_card_vs_cpu(torch, ckpt, clean[:2], noisy[:2])
+    emit(card, phase="train", config="train_conf_utnet_std.yaml", funit=funit,
+         batch=batch, cs=cs, items=n_items, validation_pairs=n_val, epochs=epochs,
+         best_epoch=res["best_epoch"], launches=launches, checkpoint=kept[-1],
+         resumed_epoch=last + 1, resumed=after, resume_launches=resume_launches,
+         cli_s=cli_s, enc1_input=list(key[0]), enc1=k2, step=times, card_vs_cpu=cpu,
+         phase_s=time.time() - t0)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1701,6 +1961,7 @@ def main() -> int:
         by_path.update(phase_int8(torch, card, tmp, kernel_mods, tif, ckpt))
         by_path["int8_static_serve"] = phase_int8_serve(torch, card, tmp, kernel_mods, ckpt)
         by_path.update(phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt))
+        by_path["train"] = phase_train(torch, card, tmp, kernel_mods)
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

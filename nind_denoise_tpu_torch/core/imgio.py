@@ -1,6 +1,7 @@
 """Host-side image decode/encode (pure numpy + OpenCV).
 
-A copy of ``load_img``, ``load_img_raw`` and ``save_img`` from
+A copy of ``load_img``, ``load_img_raw``, ``save_img``, ``CropMethod``,
+``pad_img_pair``, ``crop_img_pair`` and ``crop_to_multiple`` from
 ``nind_denoise_tpu/core/imgio.py``:
 
 * ``load_img``: RGB float32 CHW; uint8 / 255, uint16 / 65535, float32
@@ -9,15 +10,25 @@ A copy of ``load_img``, ``load_img_raw`` and ``save_img`` from
   engine normalizes on the device.
 * ``save_img``: bit depth by extension — .jpg 8-bit, .png/.tif 16-bit,
   .tiff float32 with no clipping (written by OpenCV, not imageio).
+* ``pad_img_pair`` / ``crop_img_pair``: the training dataset's centred
+  zero pad and identical (random or centre) crop of a clean/noisy pair;
+  ``crop_to_multiple`` trims whole test images to a multiple of 64.
 """
 
 from __future__ import annotations
 
 import os
+import random
+from enum import Enum, auto
 from typing import Tuple
 
 import cv2
 import numpy as np
+
+
+class CropMethod(Enum):
+    RAND = auto()
+    CENTER = auto()
 
 
 def load_img(fpath: str) -> np.ndarray:
@@ -85,3 +96,33 @@ def save_img(img_chw: np.ndarray, path: str) -> None:
             img_chw.transpose(1, 2, 0)), cv2.COLOR_RGB2BGR))
     else:
         raise NotImplementedError(f"imgio.save_img: extension of {path}")
+
+
+def pad_img_pair(img1: np.ndarray, img2: np.ndarray, cs: int):
+    """Zero-pad both images of a pair up to at least (cs, cs), centered."""
+    xpad0 = max(0, (cs - img1.shape[2]) // 2)
+    xpad1 = max(0, cs - img1.shape[2] - xpad0)
+    ypad0 = max(0, (cs - img1.shape[1]) // 2)
+    ypad1 = max(0, cs - img1.shape[1] - ypad0)
+    padding = ((0, 0), (ypad0, ypad1), (xpad0, xpad1))
+    return np.pad(img1, padding), np.pad(img2, padding)
+
+
+def crop_img_pair(img1: np.ndarray, img2: np.ndarray, cs: int,
+                  crop_method: CropMethod = CropMethod.RAND,
+                  rng: "random.Random" = random):
+    """Identical crop of an image pair to (cs, cs); RAND or CENTER."""
+    if crop_method is CropMethod.RAND:
+        x0 = rng.randint(0, img1.shape[2] - cs)
+        y0 = rng.randint(0, img1.shape[1] - cs)
+    else:
+        x0 = (img1.shape[2] - cs) // 2
+        y0 = (img1.shape[1] - cs) // 2
+    return img1[:, y0:y0 + cs, x0:x0 + cs], img2[:, y0:y0 + cs, x0:x0 + cs]
+
+
+def crop_to_multiple(img: np.ndarray, multiple: int = 64) -> np.ndarray:
+    """Trim trailing rows/cols so H and W are multiples of ``multiple``."""
+    h = img.shape[-2] - img.shape[-2] % multiple
+    w = img.shape[-1] - img.shape[-1] % multiple
+    return img[..., :h, :w]

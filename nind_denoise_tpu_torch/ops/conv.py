@@ -1,6 +1,7 @@
 """Small NCHW tensor ops of the UtNet forward: the counterparts of
-``nind_denoise_tpu/ops/conv.py``'s ``reflect_pad``, ``maxpool2x``, ``crop2``
-and ``apply_activation`` (which work on NHWC there)."""
+``nind_denoise_tpu/ops/conv.py``'s ``reflect_pad``, ``maxpool2x``,
+``avgpool2x_ceil``, ``crop2`` and ``apply_activation`` (which work on NHWC
+there)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,12 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 def maxpool2x(x: torch.Tensor) -> torch.Tensor:
     """2x2/stride-2 max pool, VALID (floors odd dims)."""
     return F.max_pool2d(x, 2)
+
+
+def avgpool2x_ceil(x: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 average pool with ceil_mode (MS-SSIM's downsampling):
+    an edge window of an odd side averages over its valid elements only."""
+    return F.avg_pool2d(x, 2, ceil_mode=True)
 
 
 def crop2(x: torch.Tensor, pad: int = 2) -> torch.Tensor:

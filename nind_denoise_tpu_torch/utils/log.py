@@ -1,12 +1,30 @@
-"""Per-stage wall-clock timers: a copy of ``StageTimers`` from
-``nind_denoise_tpu/utils/log.py``. The CLIs print ``summary()`` under
-``-v``."""
+"""stdout + logfile tee and per-stage wall-clock timers: copies of
+``Printer`` and ``StageTimers`` from ``nind_denoise_tpu/utils/log.py``.
+The trainer tees its log through ``Printer``; the CLIs print
+``StageTimers.summary()`` under ``-v``."""
 
 from __future__ import annotations
 
 import contextlib
 import time
 from typing import Dict
+
+
+class Printer:
+    def __init__(self, tostdout: bool = True, tofile: bool = True, file_path: str = "log"):
+        self.tostdout = tostdout
+        self.tofile = tofile
+        self.file_path = file_path
+
+    def print(self, msg) -> None:
+        if self.tostdout:
+            print(msg, flush=True)
+        if self.tofile:
+            try:
+                with open(self.file_path, "a") as f:
+                    f.write(str(msg) + "\n")
+            except OSError as e:
+                print(f"Warning: could not write to log: {e}")
 
 
 class StageTimers:

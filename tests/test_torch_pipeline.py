@@ -73,6 +73,8 @@ import nind_denoise_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
+train = {"nind_denoise_tpu_torch.train." + m for m in ("dataset", "loop", "optim", "steps")}
+assert train | {"nind_denoise_tpu_torch.ops.losses"} <= set(sys.modules)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "nind_denoise_tpu" or m.startswith("nind_denoise_tpu."))
 assert not bad, bad
