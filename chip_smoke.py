@@ -98,6 +98,23 @@ limit as nvidia-smi reports them):
    CPU at batch 2, resumed from the run's checkpoint (weights and optimizer
    state), within the TRAIN_* tolerances, and the same step from a fresh
    optimizer state reported beside it.
+18. gan: the same config with ``--weight_D1 0.2 --d_lr 1e-4`` (a conditional
+   Hul112Disc at d_funit 32) for two epochs: finite losses, discriminator
+   checkpoints, K2 launched once per discriminator learn (the generator
+   forward before each discriminator step) and once per validation pair
+   and validation; a resume from both checkpoints carrying Adam's count and
+   the plateau scheduler; K2 at the learn forward's (30, 3, 188, 188) input
+   against its plain version, fp32 bit-equal and bf16 within 4 ulps, each
+   timed beside cuDNN's level 1 and its bound; warm times in fp32 and bf16
+   of the discriminator step, the generator step with the D1 term, the
+   learn forward and a batch in which both networks learn (peak memory,
+   the FLOP bound from the run's own count, top device kernels); one
+   discriminator step and one generator step on the card against the CPU
+   at batch 2, resumed from the run's checkpoints with the same targets,
+   within the GAN_* tolerances; then ``--device_cache 64`` for two epochs:
+   the cache's bytes, a swap, no host-to-device copy in an epoch's steps
+   but the permutation's, the sampler's time per batch, and steps per
+   second against the host loader's.
 
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
@@ -109,6 +126,7 @@ to 0 just before each run.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -1924,6 +1942,572 @@ def phase_train(torch, card, tmp, kernel_mods, funit=64, batch=30, cs=184, extra
     return launches
 
 
+# The gan phase's card-vs-CPU steps (d_funit 32, batch 2, 184 px), both
+# resumed from the cGAN run's checkpoints (weights, BN state, Adam's and
+# AMSGrad's moments) with the same injected fuzzy targets. Losses as the
+# train phase's; the BN running stats to 1e-4 of max(1, |stat|); the
+# parameters of both networks as the train phase's: none apart by more than
+# the learning rate, at most 0.1 % by more than 1 % of it. From the run's
+# own discriminator checkpoint (an Adam state three steps old): the fp32
+# losses and BN stats as above; the same step in float64 on the card
+# against float64 on the CPU to GAN_F64_TOL (losses, BN stats relative,
+# gradients' norm relative, parameters absolute); and every fp32
+# convolution of the card's step, forward, input and weight gradients,
+# under GAN_CONV_BOUND of its rounding bound
+# (disc_step_noise.conv_error_over_bound), a bound the same step with TF32
+# allowed must break. This step's fp32 gradient is only good to 0.1-2 % on
+# either device, and which device lands nearer float64 is a draw (the
+# card 0.2-15x the CPU's distance on a batch, with or without cuDNN, with
+# its convolutions in float64 too: tools/disc_step_noise.py), so the
+# card's whole fp32 step is reported against float64 and the CPU's, not
+# held to them.
+GAN_LOSS_TOL, GAN_BN_TOL, GAN_F64_TOL, GAN_CONV_BOUND = 1e-5, 1e-4, 1e-9, 1.0
+# discriminator steps on the card before the held one (gan_card_vs_cpu)
+GAN_DISC_STEPS = 200
+GAN_WEIGHTS = {"MSSSIM": 1.0, "D1": 0.2}  # train_conf_utnet_std.yaml + --weight_D1 0.2
+GAN_RUN_PAIRS = 3  # batches of 2 stepped from the run's discriminator checkpoint
+RATE_CROPS = 320  # the device cache's rate: ten batches of 30 an epoch
+
+
+def batch_lines(exp):
+    """The per-batch lines of a training run's ``train.log``."""
+    with open(os.path.join(exp, "train.log")) as f:
+        return [ln for ln in f.read().splitlines() if re.match(r"Epoch \d+ batch \d+/", ln)]
+
+
+def highest(dpath, keyword):
+    """The highest-epoch ``<keyword>_<epoch>.npz`` in ``dpath``."""
+    eps = [int(m.group(1)) for f in os.listdir(dpath)
+           for m in [re.match(rf"{keyword}_(\d+)\.npz$", f)] if m]
+    check(eps, f"no {keyword} checkpoint in {os.listdir(dpath)}")
+    return os.path.join(dpath, f"{keyword}_{max(eps)}.npz")
+
+
+def disc_wrapper(ckpt, d_funit, device):
+    """The run's discriminator resumed from ``ckpt`` as the trainer does."""
+    import types
+
+    from nind_denoise_tpu_torch.train import gan
+
+    return gan.DiscriminatorWrapper(types.SimpleNamespace(beta1=0.75, models_dpath=None),
+                                    "Hul112Disc", d_funit, 1e-4, True, seed=1,
+                                    model_path=ckpt, device=device)
+
+
+def resumed_generator(torch, ckpt, device, dtype=None):
+    """UtNet and its AMSGrad from ``ckpt``, resumed as the trainer resumes."""
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.train import loop, steps
+
+    tree = params_io.load_npz(ckpt)
+    model = params_io.load_generator(ckpt).to(device, dtype or torch.float32)
+    opt = steps.make_optimizer(model, 1e-4, 0.75)
+    loop.GeneratorWrapper.restore_opt(opt, model, tree["opt"], tree["params"])
+    return steps.TrainState(model, opt)
+
+
+def infer_fn(torch, apply, model):
+    """``GeneratorWrapper.infer``: the forward without autograd or TF32."""
+    from nind_denoise_tpu_torch.engine.tile_engine import _tf32
+
+    def infer(x):
+        with torch.no_grad(), _tf32(False):
+            return apply(model, x)
+    return infer
+
+
+def gan_step_times(torch, gck, dck, clean, noisy, d_funit, reps=5):
+    """Warm cGAN times from the run's checkpoints on one batch, fp32 (TF32
+    off) and bf16 (the generator; the discriminator stays fp32): the
+    discriminator step, the generator step with the D1 term, ``learn``'s
+    generator forward, and a batch in which both networks learn; peak
+    memory; the FLOP count of each (``torch.utils.flop_counter``, K2's
+    level 1 added by its formula) and the bound it gives; the top device
+    kernels of one batch."""
+    import types
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from nind_denoise_tpu_torch.train import steps
+
+    clean, noisy = clean.to(DEV), noisy.to(DEV)
+    b, _, h, w = noisy.shape
+    k2_flops = 2.0 * b * h * w * 64 * 576 + 2.0 * b * (h + 2) * (w + 2) * 64 * 27
+    out = {}
+    for dtype, apply in (("float32", steps.plain_apply), ("bfloat16", steps.bf16_apply)):
+        state = resumed_generator(torch, gck, DEV)
+        disc = disc_wrapper(dck, d_funit, DEV)
+        infer = infer_fn(torch, apply, state.model)
+        gen = types.SimpleNamespace(infer=infer)
+        g = torch.Generator(DEV).manual_seed(0)
+        gstep = steps.make_generator_train_step(apply, GAN_WEIGHTS, w,
+                                                disc_fns=(disc.pred_fn, None))
+        gstep_alone = steps.make_generator_train_step(apply, {"MSSSIM": 1.0}, w)
+        fake = torch.clamp(infer(noisy), 0, 1)
+
+        def dstep():
+            return disc._step(clean, fake, noisy, False, generator=g)
+
+        def both():
+            disc.learn(clean, noisy, gen, w, generator=g)
+            return gstep(state, clean, noisy)
+
+        ms = {"disc_step": time_ms(torch, dstep, reps),
+              "gen_step_with_d1": time_ms(torch, lambda: gstep(state, clean, noisy), reps),
+              "learn_generator_forward": time_ms(torch, lambda: infer(noisy), reps)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms["batch_both_learn"] = time_ms(torch, both, reps)
+        peak = torch.cuda.max_memory_allocated()
+
+        def flops(fn):
+            with FlopCounterMode(display=False) as fc:
+                fn()
+            return fc.get_total_flops()
+
+        f = {"disc_step": flops(dstep), "gen_step_with_d1": flops(lambda: gstep(state, clean, noisy)),
+             "gen_step_alone": flops(lambda: gstep_alone(state, clean, noisy)),
+             "learn_generator_forward": flops(lambda: infer(noisy)) + k2_flops}
+        f["batch_both_learn"] = f["disc_step"] + f["gen_step_with_d1"] + f["learn_generator_forward"]
+        gen_part = f["gen_step_alone"] + f["learn_generator_forward"]
+        fp32_part = f["batch_both_learn"] - gen_part
+        peak_g = PEAK_FLOPS[dtype] * 1e-3
+        bound = gen_part / peak_g + fp32_part / (PEAK_FLOPS["float32"] * 1e-3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            both()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+                by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.self_device_time_total
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[dtype] = {"ms": ms, "peak_memory_allocated_gib": peak / 2 ** 30,
+                      "tflop": {k: v / 1e12 for k, v in f.items()},
+                      "batch_bound_ms": bound, "batch_ms_over_bound": ms["batch_both_learn"] / bound,
+                      "batch_device_ms": sum(by_name.values()) / 1e3,
+                      "top_device_ms": {k: v / 1e3 for k, v in top},
+                      "d_loss": disc.loss}
+        check(math.isfinite(disc.loss) and 0 < disc.loss < 2, f"gan step times {dtype}: {disc.loss}")
+        del state, disc
+    return out
+
+
+def disc_step_on(torch, dck, d_funit, dev, batch, draws, dtype=None, cudnn=True, tf32=False,
+                 bound=None):
+    """One discriminator step from ``dck`` on ``dev`` (fake targets noisy),
+    in float32 or ``dtype`` (the network and its Adam moments converted),
+    with cuDNN or without it, with TF32 planted (``tf32``), its convolutions
+    held to their rounding bound into the dict ``bound``
+    (``disc_step_noise.bounding_convs``): (loss_real, loss_fake, ranges,
+    its state_dict, the step's gradients), tensors in float64 on the CPU."""
+    import contextlib
+
+    from nind_denoise_tpu_torch.tools.disc_step_noise import (bounding_convs, copy_as,
+                                                              planted_tf32)
+
+    dtype = dtype or torch.float32
+    disc = disc_wrapper(dck, d_funit, dev)
+    if dtype != torch.float32:
+        disc = copy_as(disc, dtype)
+    grads, opt_step = [], disc.optimizer.step
+
+    def spy():  # the summed gradients, which the step frees after the update
+        grads.extend(p.grad.detach().cpu().double() for p in disc.optimizer.params)
+        return opt_step()
+
+    disc.optimizer.step = spy
+    c, n, f = (t.to(dev, dtype) for t in batch)
+    off = contextlib.nullcontext() if cudnn else torch.backends.cudnn.flags(enabled=False)
+    with off, planted_tf32(tf32), bounding_convs(bound):
+        lr_, lf_, ranges = disc._step(c, f, n, True, draws=tuple(d.to(dev, dtype) for d in draws))
+    return (float(lr_), float(lf_), ranges.tolist(),
+            {k: v.detach().cpu().double() for k, v in disc.model.state_dict().items()}, grads)
+
+
+def param_spread(a, b, lr):
+    """(max |a - b|, share of elements more than 1 % of ``lr`` apart) of
+    two lists of tensors."""
+    import torch
+
+    d = torch.cat([(x - y).abs().flatten() for x, y in zip(a, b)])
+    return d.max().item(), (d > lr / 100).float().mean().item()
+
+
+def step_vs(a, b, lr=1e-4):
+    """How far the discriminator steps ``a`` lie from the steps ``b`` (two
+    lists of what ``disc_step_on`` returns, paired), pooled over the pairs:
+    the losses; the BN running stats relative to max(1, |stat|); the
+    gradients, their norm's relative difference and the worst tensor's
+    (max |a - b| / max |b|); the parameters, the largest difference and the
+    share more than 1 % of ``lr`` apart."""
+    import torch
+
+    keys = [k for k in b[0][3] if not k.endswith(("running_mean", "running_var",
+                                                  "num_batches_tracked"))]
+    bn = max(((x[3][k] - y[3][k]).abs() / y[3][k].abs().clamp_min(1)).max().item()
+             for x, y in zip(a, b) for k in y[3] if k.endswith(("running_mean", "running_var")))
+    p_max, p_share = param_spread([x[3][k] for x in a for k in keys],
+                                  [y[3][k] for y in b for k in keys], lr)
+    ga = torch.cat([g.flatten() for x in a for g in x[4]])
+    gb = torch.cat([g.flatten() for y in b for g in y[4]])
+    worst = max(((u - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                for x, y in zip(a, b) for u, v in zip(x[4], y[4]))
+    loss = max(abs(x[i] - y[i]) for x, y in zip(a, b) for i in (0, 1))
+    return {"loss_abs_diff": loss, "bn_stat_rel_diff": bn,
+            "grad_norm_rel_diff": ((ga - gb).norm() / gb.norm()).item(),
+            "grad_worst_tensor_rel_diff": worst, "param_max_abs_diff": p_max,
+            "param_max_over_lr": p_max / lr, "param_share_over_lr_1pct": p_share}
+
+
+def device_kernels(torch, fn, top=10):
+    """``fn()`` under the profiler: its device kernels by name, ms, the
+    ``top`` largest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name[:96]] = by_name.get(e.name[:96], 0.0) + e.self_device_time_total / 1e3
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+
+
+def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GAN_DISC_STEPS):
+    """One discriminator step and one generator step with the D1 term on
+    the card and on the CPU at batch 2, on the same crops, generated crops
+    and fuzzy targets (fake targets noisy), held to the GAN_* tolerances;
+    the discriminator bit-unchanged by the generator step on each device.
+    The generator resumes the run's checkpoint. The held discriminator step
+    resumes the run's checkpoint trained ``steps_before`` more steps on the
+    card (batch 2 from the 30 crops, seeded targets): a young Adam state
+    moves an element whose gradient is rounding noise by up to the learning
+    rate, so the step's parameters from the run's own checkpoint (three
+    steps old) measure each device's fp32 gradient error more than the
+    port. From that checkpoint the step is run six ways, the card and the
+    CPU in fp32, the card in fp32 without cuDNN and with TF32 planted, and
+    both in float64: the float64 steps are held card against CPU (a fault
+    of the port shows in float64 too); the card's fp32 convolutions to
+    their rounding bound, which the TF32 step's must break. Every fp32 step
+    is reported against the float64 one, with the kernels the card's fp32
+    step ran."""
+    from nind_denoise_tpu_torch.train import steps
+
+    gen = infer_fn(torch, steps.plain_apply, resumed_generator(torch, gck, DEV).model)
+    fake = torch.cat([torch.clamp(gen(noisy[i:i + 2].to(DEV)), 0, 1).cpu()
+                      for i in range(0, noisy.shape[0] - 1, 2)])
+    disc = disc_wrapper(dck, d_funit, DEV)
+    age = disc.optimizer.count
+    g = torch.Generator(DEV).manual_seed(7)
+    for k in range(steps_before):
+        i = 2 * (k % (noisy.shape[0] // 2))
+        disc._step(*(t[i:i + 2].to(DEV) for t in (clean, fake, noisy)), disc.loss < 0.25,
+                   generator=g)
+    trained = os.path.join(tmp, "gan", "held")
+    disc.save_model(trained, steps_before, "discriminator")
+    tck = os.path.join(trained, f"discriminator_{steps_before}.npz")
+    # GAN_RUN_PAIRS batches of 2, each with its own targets; the held step
+    # takes the first
+    pairs = [tuple(t[i:i + 2] for t in (clean, noisy, fake))
+             for i in range(0, 2 * GAN_RUN_PAIRS, 2)]
+    batch = pairs[0]
+    shape = disc_wrapper(dck, d_funit, "cpu").model(torch.cat([noisy[:2], fake[:2]], 1),
+                                                     frozen=True).shape
+    gu = torch.Generator().manual_seed(5)
+    draws = [(torch.rand(shape, generator=gu), torch.rand(shape, generator=gu)) for _ in pairs]
+    held = {dev: disc_step_on(torch, tck, d_funit, dev, batch, draws[0]) for dev in (DEV, "cpu")}
+    f64 = torch.float64
+    ways = {"card_fp32": (DEV, None, True, False), "cpu_fp32": ("cpu", None, True, False),
+            "card_fp32_without_cudnn": (DEV, None, False, False),
+            "card_fp32_tf32_planted": (DEV, None, True, True),
+            "card_float64": (DEV, f64, True, False), "cpu_float64": ("cpu", f64, True, False)}
+    bound = {"card_fp32": {}, "card_fp32_tf32_planted": {}}
+    run = {name: [disc_step_on(torch, dck, d_funit, dev, b, u, dt, cudnn, tf32, bound.get(name))
+                  for b, u in zip(pairs, draws)]
+           for name, (dev, dt, cudnn, tf32) in ways.items()}
+    kernels = device_kernels(torch, lambda: disc_step_on(torch, dck, d_funit, DEV, batch, draws[0]))
+
+    res = {}
+    for dev in (DEV, "cpu"):
+        c, n = clean[:2].to(dev), noisy[:2].to(dev)
+        fool = disc_wrapper(tck, d_funit, dev)
+        before = {k: v.clone() for k, v in fool.model.state_dict().items()}
+        state = resumed_generator(torch, gck, dev)
+        m = steps.make_generator_train_step(steps.plain_apply, GAN_WEIGHTS, c.shape[-1],
+                                            disc_fns=(fool.pred_fn, None))(state, c, n)
+        untouched = all(torch.equal(v, before[k]) for k, v in fool.model.state_dict().items()) \
+            and all(p.grad is None for p in fool.model.parameters())
+        check(untouched, f"gan card vs CPU: the generator step changed the discriminator on {dev}")
+        res[dev] = ({k: float(v) for k, v in m.items()},
+                    [p.detach().cpu().double() for p in state.model.parameters()],
+                    state.opt.hyper["learning_rate"])
+
+    (dr_c, df_c, rg_c, _, _), (dr_h, df_h, rg_h, _, _) = held[DEV], held["cpu"]
+    d = step_vs([held[DEV]], [held["cpu"]])
+    ref = run["cpu_float64"]
+    own = {"adam_steps_before": age, "batches_of_2": GAN_RUN_PAIRS,
+           "card_vs_cpu_fp32": step_vs(run["card_fp32"], run["cpu_fp32"]),
+           "card_vs_cpu_float64": step_vs(run["card_float64"], ref),
+           "vs_cpu_float64": {name: step_vs(run[name], ref) for name in (
+               "card_fp32", "cpu_fp32", "card_fp32_without_cudnn", "card_fp32_tf32_planted")},
+           "conv_error_over_bound": bound,
+           "losses_float64": [r[:2] for r in ref],
+           "cudnn_version": torch.backends.cudnn.version(),
+           "card_fp32_step_kernels_ms": kernels}
+    (mg_c, pg_c, glr), (mg_h, pg_h, _) = res[DEV], res["cpu"]
+    g_max, g_share = param_spread(pg_c, pg_h, glr)
+    rec = {"shape": list(clean[:2].shape), "pred_shape": list(shape),
+           "disc_resumed_from": f"{os.path.basename(dck)} + {steps_before} steps on the card",
+           "disc": {"loss_real": [dr_c, dr_h], "loss_fake": [df_c, df_h],
+                    "ranges_cuda": rg_c, "ranges_cpu": rg_h, **d, "lr": 1e-4},
+           "gen": {"metrics_cuda": mg_c, "metrics_cpu": mg_h, "param_max_abs_diff": g_max,
+                   "param_share_over_lr_1pct": g_share, "lr": glr},
+           "disc_from_the_run_checkpoint": own,
+           "tolerance": {"loss": GAN_LOSS_TOL, "bn_stat_rel": GAN_BN_TOL, "param_max": "lr",
+                         "param_share_over_lr_1pct": TRAIN_PARAM_SHARE,
+                         "run_checkpoint_conv_error_over_bound": GAN_CONV_BOUND,
+                         "run_checkpoint_float64": GAN_F64_TOL}}
+    check(d["loss_abs_diff"] <= GAN_LOSS_TOL, f"gan card vs CPU: discriminator losses {rec}")
+    check(d["bn_stat_rel_diff"] <= GAN_BN_TOL, f"gan card vs CPU: BN running stats {rec}")
+    check(d["param_max_abs_diff"] <= 1e-4 and d["param_share_over_lr_1pct"] <= TRAIN_PARAM_SHARE,
+          f"gan card vs CPU: discriminator {rec}")
+    o32, o64 = own["card_vs_cpu_fp32"], own["card_vs_cpu_float64"]
+    check(o32["loss_abs_diff"] <= GAN_LOSS_TOL and o32["bn_stat_rel_diff"] <= GAN_BN_TOL,
+          f"gan card vs CPU: the run checkpoint's fp32 step {rec}")
+    passes = {"forward", "input_grad", "weight_grad"}
+    check(set(bound["card_fp32"]) == passes and max(bound["card_fp32"].values()) < GAN_CONV_BOUND,
+          f"gan card vs CPU: the run checkpoint's fp32 convolutions on the card {rec}")
+    check(max(bound["card_fp32_tf32_planted"].values()) > GAN_CONV_BOUND,
+          f"gan card vs CPU: the rounding bound does not see planted TF32 {rec}")
+    check(all(o64[k] <= GAN_F64_TOL for k in ("loss_abs_diff", "bn_stat_rel_diff",
+                                              "grad_norm_rel_diff", "param_max_abs_diff")),
+          f"gan card vs CPU: the run checkpoint's float64 step {rec}")
+    check(all(abs(mg_c[k] - mg_h[k]) <= GAN_LOSS_TOL for k in mg_h) and set(mg_c) == set(mg_h)
+          and "D1" in mg_h, f"gan card vs CPU: generator losses {rec}")
+    check(g_max <= glr and g_share <= TRAIN_PARAM_SHARE, f"gan card vs CPU: generator {rec}")
+    return rec
+
+
+def device_cache_run(torch, tmp, argv, kernel_mods, n_val, batch, cs, funit):
+    """``--device_cache 64``, two epochs, generator only: the cache's bytes,
+    its swaps and the run's launches; then, on that run's cache, the
+    sampler's time per batch and the H2D copies of an epoch of train steps
+    under the profiler; then fp32 steps per second on RATE_CROPS crops
+    drawn from a cache against the host loader."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nind_denoise_tpu_torch.train import dataset as ds_mod
+    from nind_denoise_tpu_torch.train import device_cache as dc_mod
+    from nind_denoise_tpu_torch.train import loop, steps
+
+    cls = dc_mod.DeviceEpochCache
+    caches, swaps = [], []
+    init, swap = cls.__init__, cls.maybe_swap
+
+    def spy_init(self, *a, **k):
+        init(self, *a, **k)
+        caches.append(self)
+
+    def spy_swap(self):
+        swaps.append(swap(self))
+        return swaps[-1]
+
+    cls.__init__, cls.maybe_swap = spy_init, spy_swap
+    try:
+        exp, launches = counted(torch, kernel_mods, lambda: cli_run(loop, argv)[0])
+    finally:
+        cls.__init__, cls.maybe_swap = init, swap
+    (cache,) = caches
+    with open(os.path.join(exp, "trainres.json")) as f:
+        res = json.load(f)
+    nbytes = 2 * cache.n * cs * cs * 3 * 2
+    check(cache.nbytes() == nbytes and cache.cache_x.dtype == torch.float16
+          and cache.cache_x.device.type == torch.device(DEV).type,
+          f"device cache: {cache.nbytes()} bytes, expected {nbytes}")
+    check(any(swaps), f"device cache: no swap at {len(swaps)} epoch boundaries")
+    check(all(math.isfinite(v) for r in res.values() if isinstance(r, dict)
+              for v in r.values() if isinstance(v, float)) and "train_weighted_loss" in res["2"],
+          f"device cache: {res}")
+    check(launches["enc1"] == n_val * 3 and sum(launches.values()) == launches["enc1"],
+          f"device cache: launches {launches}")
+
+    g = torch.Generator(DEV).manual_seed(1)
+    idxs = torch.arange(batch, device=DEV)
+    sampler_ms = time_ms(torch, lambda: cache.batch(idxs, g), 20)
+    model = loop.init_model(funit, "PReLU", 0).to(DEV)
+    state = steps.TrainState(model, steps.make_optimizer(model, 1e-4, 0.75))
+    step = steps.make_generator_train_step(steps.plain_apply, {"MSSSIM": 1.0}, cs)
+    for c, n in cache.epoch_batches(batch, g):  # warm
+        step(state, c, n)
+    torch.cuda.synchronize()
+    # Every copy is a runtime call on the host side of the trace, and the
+    # host side keeps them all; the device side can lose records (pageable
+    # HtoD ones, seen on the H100 after earlier profiles in the process).
+    # So a call without a device record may have been an upload, unless it
+    # reads a scalar to the host (under aten::_local_scalar_dense).
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(64).to(DEV)  # a probe: the trace must show this copy
+        torch.cuda.synchronize()
+        for c, n in cache.epoch_batches(batch, g):
+            step(state, c, n)
+        torch.cuda.synchronize()
+    calls, records = [], []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "Memcpy" in e.name:
+            records.append(e.name)
+        elif e.name.startswith("cudaMemcpy"):
+            chain, q = [], e.cpu_parent
+            while q is not None and len(chain) < 4:
+                chain.append(q.name)
+                q = q.cpu_parent
+            calls.append(" <- ".join(chain))
+    h2d = [r for r in records if "HtoD" in r]
+    reads = sum("aten::_local_scalar_dense" in c for c in calls)
+    unrecorded = (len(calls) - reads) - sum("DtoH" not in r for r in records)
+    uploads = len(h2d) + max(0, unrecorded)
+    check(len(calls) >= 2 and uploads <= 2,
+          f"device cache: an epoch's steps copied to the device beyond the probe and the "
+          f"permutation (at most {uploads} uploads): calls {calls}, records {records}")
+
+    # Steps per second from a cache of RATE_CROPS crops (ten batches an
+    # epoch) against the host loader on the same crops, one thread as the
+    # run above and the trainer's default six, two epochs each after one
+    # to warm; every epoch restarts the loader's threads.
+    big = os.path.join(tmp, "gan", "rate", "SYN_192_184")
+    write_train_crops(big, os.path.join(os.path.dirname(big), "val.yaml"), scenes=4,
+                      crops=RATE_CROPS // 4, seed=1)
+    ds = ds_mod.DenoisingDataset([big], cs=cs, min_crop_size=cache.dataset.min_crop_size,
+                                 exp_mult_min=cache.exp_mult_min,
+                                 exp_mult_max=cache.exp_mult_max, seed=0)
+    t0 = time.time()
+    rate_cache = dc_mod.DeviceEpochCache(ds, RATE_CROPS, device=DEV, seed=0, threads=4)
+    fill_s = time.time() - t0
+
+    def rate(batches):
+        for c, n in batches():  # warm
+            step(state, c, n)
+        torch.cuda.synchronize()
+        t0, k = time.time(), 0
+        for _ in range(2):
+            for c, n in batches():
+                step(state, c, n)
+                k += 1
+        torch.cuda.synchronize()
+        return k / (time.time() - t0), k // 2
+
+    def host(threads):
+        loader = ds_mod.Loader(ds, batch, num_threads=threads, seed=0)
+        return lambda: ((loop.to_device(c, DEV), loop.to_device(n, DEV)) for c, n in loader)
+
+    rates = {"cache": rate(lambda: rate_cache.epoch_batches(batch, g)),
+             "host_loader_1_thread": rate(host(1)), "host_loader_6_threads": rate(host(6))}
+    check(all(k >= 10 for _, k in rates.values()), f"device cache: short epochs {rates}")
+    return {"n": cache.n, "cache_bytes": cache.nbytes(), "swaps": swaps,
+            "uploaded_rows": cache.uploaded_rows, "launches": launches,
+            "epochs": {e: res[e] for e in ("1", "2")}, "sampler_ms_per_batch": sampler_ms,
+            "h2d_records_probe_and_epoch": h2d, "uploads_at_most": uploads,
+            "copy_calls": dict(collections.Counter(calls)), "copy_records": records,
+            "rate_crops": RATE_CROPS, "rate_cache_fill_s": fill_s,
+            "rate_batches_per_epoch": rates["cache"][1],
+            "steps_per_s": {k: v for k, (v, _) in rates.items()}}, launches
+
+
+def phase_gan(torch, card, tmp, kernel_mods, funit=64, batch=30, cs=184, d_funit=32, extra=()):
+    """The cGAN: ``train.loop`` with ``train_conf_utnet_std.yaml`` and
+    ``--weight_D1 0.2 --d_lr 1e-4`` (Hul112Disc, d_funit 32, conditional)
+    for two epochs on the train phase's seeded crops, one loader thread:
+    finite losses, discriminator checkpoints, K2 launched once per
+    discriminator learn (its generator forward) and once per validation
+    pair and validation; a resume from both checkpoints for one more epoch
+    carrying Adam's count and the plateau scheduler; K2 at the learn
+    forward's input against its plain version in fp32 (bit-equal) and
+    bf16; warm step times in fp32 and bf16; one discriminator step and one
+    generator step on the card against the CPU; then a two-epoch
+    ``--device_cache 64`` run. Returns the launch counts by run."""
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.ops import enc1 as E
+    from nind_denoise_tpu_torch.train import gan, loop
+
+    t0 = time.time()
+    root, val = os.path.join(tmp, "train", "SYN_192_184"), os.path.join(tmp, "train", "val.yaml")
+    if not os.path.isdir(root):
+        write_train_crops(root, val, scenes=4, crops=16)
+    n_val = 3
+    cfg = os.path.join(ROOT, "nind_denoise_tpu_torch", "configs", "train_conf_utnet_std.yaml")
+    argv = ["--config", cfg, "--train_data", root, "--validation_set_yaml", val,
+            "--test_reserve", "0", "--threads", "1", "--device", DEV, *extra]
+    gan_argv = argv + ["--weight_D1", "0.2", "--d_lr", "1e-4", "--d_funit", str(d_funit)]
+    rec = record_inputs(E, "enc1", lambda x, *w: (tuple(x.shape), str(x.dtype)))
+    try:
+        exp, launches = counted(torch, kernel_mods, lambda: cli_run(
+            loop, gan_argv + ["--epochs", "3", "--models_dpath", os.path.join(tmp, "gan", "a")])[0])
+    finally:
+        rec["restore"]()
+    lines = batch_lines(exp)
+    learns = sum("loss D1: " in ln for ln in lines)
+    g_steps = sum("loss G: " in ln for ln in lines)
+    d_losses = [float(v) for ln in lines for v in re.findall(r"loss D1: (\S+) \(", ln)]
+    g_losses = [float(v) for ln in lines for v in re.findall(r"weighted: (\S+)", ln)]
+    check(learns > 0 and g_steps > 0 and len(g_losses) == g_steps
+          and all(math.isfinite(v) for v in d_losses + g_losses),
+          f"gan: losses {lines}")
+    check(launches["enc1"] == learns + n_val * 3 and sum(launches.values()) == launches["enc1"],
+          f"gan: launches {launches}, expected enc1 {learns} learns + {n_val * 3}")
+    gck, dck = highest(exp, "generator"), highest(exp, "discriminator")
+    dtree = params_io.load_npz(dck)
+    last = params_io.load_npz(gck)["epoch"]
+
+    resumed, resume_launches = counted(torch, kernel_mods, lambda: cli_run(
+        loop, gan_argv + ["--epochs", str(last + 2), "--g_model_path", gck, "--d_model_path", dck,
+                          "--models_dpath", os.path.join(tmp, "gan", "b")])[0])
+    r_lines = batch_lines(resumed)
+    r_learns = sum("loss D1: " in ln for ln in r_lines)
+    d_new = params_io.load_npz(os.path.join(resumed, f"discriminator_{last + 1}.npz"))
+    with open(os.path.join(resumed, "train.log")) as f:
+        avg = float(re.search(r"Discriminator1 average normalized loss: (\S+)", f.read()).group(1))
+    sched = gan.ReduceLROnPlateau(dtree["sched"]["lr"], 0.75, patience=3)
+    sched.best, sched.num_bad = dtree["sched"]["best"], dtree["sched"]["num_bad"]
+    sched.step(avg)
+    check(int(d_new["opt"][0]) == int(dtree["opt"][0]) + r_learns
+          and (d_new["sched"]["lr"], d_new["sched"]["best"], d_new["sched"]["num_bad"])
+          == (sched.lr, sched.best, sched.num_bad),
+          f"gan resume: Adam count {d_new['opt'][0]} after {dtree['opt'][0]} + {r_learns}, "
+          f"scheduler {d_new['sched']} from {dtree['sched']} and {avg}")
+    check(resume_launches["enc1"] == r_learns + n_val * 2, f"gan resume: {resume_launches}")
+    cli_s = time.time() - t0
+
+    # K2 at the learn forward's input, fp32 as the run gave it, and in bf16
+    (args,) = [a for (shape, _), a in rec["seen"].items() if shape[0] == batch]
+    with torch.inference_mode():
+        k2 = enc1_record(torch, E, args, 10)
+        check(k2["max_abs_err"] == 0, f"gan: K2 fp32 at {list(args[0].shape)} not bit-equal: {k2}")
+        k2_bf16 = enc1_record(torch, E, [a.to(torch.bfloat16) for a in args], 10)
+    clean, noisy = train_batch(torch, root, batch, cs)
+    times = gan_step_times(torch, gck, dck, clean, noisy, d_funit)
+    cpu = gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit)
+    emit(card, phase="gan", config="train_conf_utnet_std.yaml + --weight_D1 0.2 --d_lr 1e-4",
+         d_network="Hul112Disc", d_funit=d_funit, batch=batch, cs=cs, validation_pairs=n_val,
+         batches=len(lines), d_learns=learns, g_steps=g_steps, d_losses=d_losses,
+         g_losses=g_losses, launches=launches, checkpoints=[os.path.basename(gck),
+                                                            os.path.basename(dck)],
+         resumed_epoch=last + 1, resumed_d_learns=r_learns, resume_launches=resume_launches,
+         resumed_sched=d_new["sched"], cli_s=cli_s, enc1_input=list(args[0].shape),
+         enc1_fp32=k2, enc1_bf16=k2_bf16, step=times, card_vs_cpu=cpu,
+         phase_s=time.time() - t0)
+
+    t1 = time.time()
+    cache_rec, cache_launches = device_cache_run(
+        torch, tmp, argv + ["--epochs", "3", "--device_cache", "64",
+                       "--models_dpath", os.path.join(tmp, "gan", "cache")],
+        kernel_mods, n_val, batch, cs, funit)
+    emit(card, phase="gan_device_cache", **cache_rec, phase_s=time.time() - t1)
+    return launches, cache_launches
+
+
 def main() -> int:
     import torch
 
@@ -1962,6 +2546,7 @@ def main() -> int:
         by_path["int8_static_serve"] = phase_int8_serve(torch, card, tmp, kernel_mods, ckpt)
         by_path.update(phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt))
         by_path["train"] = phase_train(torch, card, tmp, kernel_mods)
+        by_path["gan"], by_path["gan_device_cache"] = phase_gan(torch, card, tmp, kernel_mods)
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

@@ -18,6 +18,12 @@ pickle. ``opt_leaves`` / ``opt_from_leaves`` carry the trainer's optimizer
 state across in the order the JAX trainer stores it, so that a checkpoint
 of either trainer resumes in the other.
 
+The Hul discriminators cross the same way: ``hul_state_dict_from_jax``
+(the mapping of ``torch_export.export_hul_disc``), its inverse
+``hul_jax_from_state_dict`` (``torch_import.import_hul_disc``, which
+rejects finalpool heads) and ``load_discriminator``; their Adam state
+is ``opt_leaves`` with ``ADAM_MOMENTS``.
+
 ``complete_path`` resolves a checkpoint directory to its best-validation
 epoch (``trainres.json``) or its highest epoch, as the JAX package's
 ``params_io`` does. ``load_generator`` builds the model on the ``meta``
@@ -168,51 +174,66 @@ def jax_from_state_dict(sd: Dict[str, Any]) -> Dict:
 
 
 def leaf_paths(tree: Any, prefix=()) -> List[tuple]:
-    """Key paths of a nested dict's leaves in ``jax.tree_util.tree_leaves``
-    order (dict keys sorted)."""
-    if not isinstance(tree, dict):
-        return [prefix]
-    return [p for k in sorted(tree) for p in leaf_paths(tree[k], prefix + (k,))]
+    """Key paths of a nested dict's (or list's) leaves in
+    ``jax.tree_util.tree_leaves`` order (dict keys sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, prefix + (i,))]
+    return [prefix]
 
 
-# optax.inject_hyperparams(optax.amsgrad) state, flattened as
+def _unflatten_like(template: Any, leaves) -> Any:
+    """A tree of ``template``'s structure holding ``leaves`` (an iterator),
+    taken in ``leaf_paths`` order."""
+    if isinstance(template, dict):
+        return {k: _unflatten_like(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, (list, tuple)):
+        return [_unflatten_like(v, leaves) for v in template]
+    return next(leaves)
+
+
+# optax.inject_hyperparams(optax.amsgrad | optax.adam) state, flattened as
 # jax.tree_util.tree_leaves gives it: the outer count, the hyperparameters
-# by sorted name, amsgrad's count, then mu, nu and nu_max as params trees
+# by sorted name, the inner transform's count, then its moments as params
+# trees (amsgrad: mu, nu and nu_max; adam: mu and nu)
 OPT_HYPERPARAMS = ("b1", "b2", "eps", "eps_root", "learning_rate")
 OPT_MOMENTS = ("mu", "nu", "nu_max")
+ADAM_MOMENTS = ("mu", "nu")
 
 
 def opt_leaves(count: int, hyper: Dict[str, float], inner_count: int,
-               moments: Dict[str, Dict[str, Any]]) -> List[np.ndarray]:
+               moments: Dict[str, Dict[str, Any]], names=OPT_MOMENTS,
+               to_jax=None) -> List[np.ndarray]:
     """The JAX trainer's ``opt`` checkpoint entry from the port's
     optimizer state: ``moments[name]`` is a state_dict-keyed dict of each
-    of ``OPT_MOMENTS``, permuted here as its weight is."""
+    of ``names``, mapped to the JAX params tree by ``to_jax`` (default:
+    UtNet's ``jax_from_state_dict``), so permuted as its weight is."""
+    to_jax = to_jax or jax_from_state_dict
     leaves = [np.asarray(count, np.int32)]
     leaves += [np.asarray(hyper[k], np.float32) for k in OPT_HYPERPARAMS]
     leaves.append(np.asarray(inner_count, np.int32))
-    for name in OPT_MOMENTS:
-        tree = jax_from_state_dict(moments[name])
+    for name in names:
+        tree = to_jax(moments[name])
         leaves += [_get(tree, p) for p in leaf_paths(tree)]
     return leaves
 
 
-def opt_from_leaves(leaves: List[Any], params: Dict):
+def opt_from_leaves(leaves: List[Any], params: Any, names=OPT_MOMENTS, from_jax=None):
     """Inverse of ``opt_leaves`` for a checkpoint whose params tree is
-    ``params``: (count, hyper, inner_count, {moment: state_dict})."""
-    paths = leaf_paths(params)
-    n = len(paths)
+    ``params``: (count, hyper, inner_count, {moment: state_dict}), each
+    moment mapped by ``from_jax`` (default: UtNet's ``state_dict_from_jax``)."""
+    from_jax = from_jax or state_dict_from_jax
+    n = len(leaf_paths(params))
     head = 2 + len(OPT_HYPERPARAMS)
-    if len(leaves) != head + len(OPT_MOMENTS) * n:
+    if len(leaves) != head + len(names) * n:
         raise ValueError(
-            f"optimizer state mismatch: {head + len(OPT_MOMENTS) * n} leaves "
+            f"optimizer state mismatch: {head + len(names) * n} leaves "
             f"expected, {len(leaves)} saved")
     hyper = {k: float(np.asarray(v)) for k, v in zip(OPT_HYPERPARAMS, leaves[1:head - 1])}
-    moments = {}
-    for j, name in enumerate(OPT_MOMENTS):
-        tree: dict = {}
-        for p, v in zip(paths, leaves[head + j * n: head + (j + 1) * n]):
-            _set(tree, p, v)
-        moments[name] = state_dict_from_jax(tree)
+    moments = {name: from_jax(_unflatten_like(
+        params, iter(leaves[head + j * n: head + (j + 1) * n])))
+        for j, name in enumerate(names)}
     return int(np.asarray(leaves[0])), hyper, int(np.asarray(leaves[head - 1])), moments
 
 
@@ -333,3 +354,101 @@ def generator_from_state_dict(sd: Dict[str, torch.Tensor],
         model = UtNet(UtNet.funit_of(sd), activation)
     model.load_state_dict(sd, strict=True, assign=True)
     return model
+
+
+# -- the Hul discriminators ---------------------------------------------------
+
+def hul_state_dict_from_jax(params: Dict, state: Optional[Dict],
+                            network: str) -> Dict[str, torch.Tensor]:
+    """JAX Hul discriminator (params, BN state) -> the port's ``HulDisc``
+    state_dict, as ``torch_export.export_hul_disc`` writes the reference's
+    layout. ``state`` None maps the parameters alone (an optimizer moment
+    is laid out as the parameters)."""
+    from .hul import layer_slots
+
+    sd: Dict[str, np.ndarray] = {}
+    for bname, li, spec, conv, act, bn in layer_slots(network):
+        lay = params[bname][li]
+        sd[f"{bname}.{conv}.weight"] = _conv_w(lay["w"])
+        if spec[5]:
+            sd[f"{bname}.{conv}.bias"] = _f32(lay["b"])
+        if act is not None and "a" in lay:
+            sd[f"{bname}.{act}.weight"] = _f32(lay["a"]).reshape(1)
+        if bn is not None:
+            sd[f"{bname}.{bn}.weight"] = _f32(lay["bn"]["scale"])
+            sd[f"{bname}.{bn}.bias"] = _f32(lay["bn"]["bias"])
+            if state is not None:
+                st = state[bname][li]
+                sd[f"{bname}.{bn}.running_mean"] = _f32(st["mean"])
+                sd[f"{bname}.{bn}.running_var"] = _f32(st["var"])
+                sd[f"{bname}.{bn}.num_batches_tracked"] = np.zeros((), np.int64)
+    if "_out_a" in params:
+        sd["out_activation.weight"] = _f32(params["_out_a"]).reshape(1)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def hul_jax_from_state_dict(sd: Dict[str, Any], network: str):
+    """A Hul discriminator state_dict (the port's or the reference's
+    ``.pt``) -> JAX (params, BN state): the inverse of
+    ``hul_state_dict_from_jax``, as ``torch_import.import_hul_disc``. Only
+    the ``finalpool=False`` wiring exists in either package: a finalpool
+    checkpoint (a 1x1 first decide conv) raises ValueError. A layer's state
+    is None where the dict holds no running stats."""
+    from .hul import VARIANTS, layer_slots
+
+    def arr(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    plan = VARIANTS[network][0]
+    dk = "decide.0.weight"
+    if arr(sd[dk]).shape[-1] != plan["decide"][0][2]:
+        raise ValueError(
+            f"{network}: decide head kernel {tuple(arr(sd[dk]).shape)} does not "
+            "match the finalpool=False wiring (finalpool checkpoints are "
+            "not supported)")
+    params: Dict = {b: [] for b in plan}
+    state: Dict = {b: [] for b in plan}
+    for bname, _li, spec, conv, act, bn in layer_slots(network):
+        key = f"{bname}.{conv}.weight"
+        w = arr(sd[key])
+        if w.shape[-1] != spec[2]:
+            raise ValueError(f"{network}: {key} kernel {tuple(w.shape)} != plan k={spec[2]}")
+        lay = {"w": np.ascontiguousarray(_conv_w_inv(w))}
+        if spec[5]:
+            lay["b"] = _f32(arr(sd[f"{bname}.{conv}.bias"]))
+        if act is not None and f"{bname}.{act}.weight" in sd:
+            lay["a"] = _f32(arr(sd[f"{bname}.{act}.weight"])).reshape(())
+        st = None
+        if bn is not None:
+            lay["bn"] = {"scale": _f32(arr(sd[f"{bname}.{bn}.weight"])),
+                         "bias": _f32(arr(sd[f"{bname}.{bn}.bias"]))}
+            if f"{bname}.{bn}.running_mean" in sd:
+                st = {"mean": _f32(arr(sd[f"{bname}.{bn}.running_mean"])),
+                      "var": _f32(arr(sd[f"{bname}.{bn}.running_var"]))}
+        params[bname].append(lay)
+        state[bname].append(st)
+    if "out_activation.weight" in sd:
+        params["_out_a"] = _f32(arr(sd["out_activation.weight"])).reshape(())
+    return params, state
+
+
+def load_discriminator(model_path: str, network: str,
+                       models_dpath: Optional[str] = None,
+                       keyword: str = "discriminator") -> Dict[str, Any]:
+    """Resolve and load a discriminator checkpoint, as the JAX package's
+    ``params_io.load_discriminator``: ``{"params", "state", "opt",
+    "sched"}`` in the JAX layout. ``opt`` and ``sched`` are None unless the
+    file is an ``.npz`` that bundled them; a reference ``.pt`` carries
+    neither, so a resume from one restarts Adam and the plateau window."""
+    fpath = complete_path(model_path, models_dpath, keyword)
+    if fpath.endswith(".npz"):
+        tree = load_npz(fpath)
+        if isinstance(tree, dict) and "params" in tree:
+            return {"params": tree["params"], "state": tree.get("state"),
+                    "opt": tree.get("opt"), "sched": tree.get("sched")}
+        return {"params": tree, "state": None, "opt": None, "sched": None}
+    if fpath.endswith((".pt", ".pth")):
+        params, state = hul_jax_from_state_dict(
+            torch.load(fpath, map_location="cpu", weights_only=True), network)
+        return {"params": params, "state": state, "opt": None, "sched": None}
+    raise ValueError(f"unsupported checkpoint format: {fpath}")

@@ -19,6 +19,7 @@ All functions are per-sample (reduction=None); ``.mean()`` for a scalar.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -74,6 +75,13 @@ def ssim(x: torch.Tensor, y: torch.Tensor, **kwargs) -> torch.Tensor:
     return ss.mean(dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_weights(weights: tuple, device: torch.device) -> torch.Tensor:
+    """The scale weights as a float32 tensor on ``device``, uploaded once:
+    a train step then copies nothing from the host."""
+    return torch.tensor(weights, dtype=torch.float32, device=device)
+
+
 def ms_ssim(x: torch.Tensor, y: torch.Tensor, weights=MS_SSIM_WEIGHTS,
             **kwargs) -> torch.Tensor:
     """(N,) per-sample MS-SSIM."""
@@ -82,7 +90,7 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, weights=MS_SSIM_WEIGHTS,
             f"ms_ssim needs inputs >= {MS_SSIM_MIN_SIZE} px per side "
             f"(got {x.shape[2]}x{x.shape[3]}): the 5-scale pyramid's 11-tap "
             f"VALID windows run out of pixels below that")
-    w = torch.tensor(weights, dtype=torch.float32, device=x.device)
+    w = _scale_weights(tuple(weights), x.device)
     css = []
     ss = None
     for i in range(len(weights)):

@@ -1,7 +1,8 @@
-"""nn_train on one GPU — train a UtNet denoising generator.
+"""nn_train on one GPU — train a UtNet denoising generator, alone or as a
+cGAN against one or two Hul discriminators.
 
 The counterpart of ``nind_denoise_tpu/train/loop.py`` (the reference's
-nn_train.py:118-448) for generator-only training: layered YAML config
+nn_train.py:118-448): layered YAML config
 (common + train defaults + --config/--config2), loss weights {SSIM,
 MSSSIM, L1, MSE} normalized to 1, experiment dir named by timestamp +
 argv, Printer tee to train.log, JSONSaver trainres.json with best
@@ -14,17 +15,25 @@ decay, ``--msssim_warmup_epochs``, ``--clean_data_ratio``,
 the debug options {short_run, check_dataset, output_val_images,
 output_test_images, keep_all_output_images}.
 
+``--weight_D1``/``--weight_D2`` > 0 add the conditional discriminators
+(``train/gan.py``; ``--d_network``/``--d2_network`` one of the four Hul
+discriminators), scheduled against the generator by the reference's
+stochastic rule from ``random.Random(seed)``, with ``--freeze_generator``
+and ``--discriminator_advantage``. ``--device_cache N`` holds N crop
+pairs on the device and augments them there (``train/device_cache.py``).
+
 Checkpoints are the JAX trainer's ``.npz`` files (params, optimizer
-leaves, epoch; ``models/params_io``): either trainer resumes from the
-other's with ``--g_model_path``. Not ported yet, and refused: the cGAN
-discriminators (``--weight_D1/--weight_D2`` > 0) and ``--device_cache``
-(ROADMAP item 6.2), generators other than UtNet (item 7) and multi-host
-runs (item 9).
+leaves, epoch; discriminators with their BN state and plateau scheduler;
+``models/params_io``): either trainer resumes from the other's with
+``--g_model_path`` / ``--d_model_path`` / ``--d2_model_path``. Not ported
+yet, and refused: networks other than UtNet and the Hul discriminators
+(ROADMAP item 7) and multi-host runs (item 9).
 
     python -m nind_denoise_tpu_torch.train.loop \\
         --config nind_denoise_tpu_torch/configs/train_conf_utnet_std.yaml \\
         --train_data <cropped dir> --validation_set_yaml <pairs.yaml> \\
-        --models_dpath <dir> [--compute_dtype bfloat16] [--device cpu]
+        --models_dpath <dir> [--weight_D1 0.2 --d_lr 1e-4] [--device_cache N] \\
+        [--compute_dtype bfloat16] [--device cpu]
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from __future__ import annotations
 import collections
 import datetime
 import os
+import random
 import shutil
 import signal
 import statistics
@@ -45,13 +55,14 @@ import torch
 import yaml
 
 from ..engine.tile_engine import _tf32
-from ..models import params_io
+from ..models import HUL_DISCS, params_io
 from ..models.utnet import UtNet
 from ..utils import conf, json_saver
 from ..utils.device import resolve_device
 from ..utils.log import Printer
 from . import dataset as ds_mod
 from . import steps
+from .gan import DiscriminatorWrapper
 
 DEBUG_OPTIONS = ("short_run", "check_dataset", "output_val_images",
                  "output_test_images", "keep_all_output_images")
@@ -98,8 +109,8 @@ def build_parser():
     p.add_argument("--exp_mult_max", type=float)
     p.add_argument("--clean_data_dpath")
     p.add_argument("--clean_data_ratio", type=float)
-    # discriminators: parsed so that every preset loads; a non-zero weight
-    # is refused (ROADMAP item 6.2)
+    # discriminators (--d_activation/--d2_activation/--d*_loss_function are
+    # parsed and unused, as in the JAX trainer)
     p.add_argument("--d_activation", type=str, default="PReLU")
     p.add_argument("--d2_activation", type=str, default="PReLU")
     p.add_argument("--d_funit", type=int, default=32)
@@ -139,14 +150,19 @@ def build_parser():
                    help="decode training crops once and serve from RAM "
                         "(small datasets)")
     p.add_argument("--device_cache", type=int, default=0,
-                   help="not ported (ROADMAP item 6.2): must stay 0")
+                   help="hold N training crop pairs on the device and augment "
+                        "them there (rot90/flips/exp_mult); a background "
+                        "thread re-draws a share of them each epoch. 0 = host "
+                        "loader. Falls back to the host loader for "
+                        "--clean_data_ratio and host-only augmentations")
     p.add_argument("--checkpoint_interval", type=int, default=1,
                    help="save the generator every N epochs instead of every "
                         "epoch (reference parity: 1). New-best epochs always "
                         "save, and stops (time_limit/min_lr/SIGTERM) force a "
                         "final save. 0 = stops/final only")
     p.add_argument("--device_cache_refresh", type=float, default=0.25,
-                   help="not ported (ROADMAP item 6.2)")
+                   help="share of the device cache re-drawn (new ISO pair and "
+                        "crop position) per epoch; 0 = never")
     p.add_argument("--msssim_warmup_epochs", type=int, default=0,
                    help="train the first N epochs with MSE before switching "
                         "to the configured loss. MS-SSIM's relu'd product "
@@ -167,14 +183,13 @@ def build_parser():
 def check_ported(args) -> None:
     """Refuse what this slice of the port does not run, naming where it is
     queued in ROADMAP.md."""
-    if (args.weight_D1 or 0) > 0 or (args.weight_D2 or 0) > 0:
-        raise NotImplementedError(
-            "--weight_D1/--weight_D2 > 0: the cGAN discriminators are not "
-            "ported yet (ROADMAP item 6.2)")
-    if args.device_cache > 0:
-        raise NotImplementedError(
-            "--device_cache: the device-resident crop cache is not ported "
-            "yet (ROADMAP item 6.2)")
+    for flag, weight, network in (("--d_network", args.weight_D1, args.d_network),
+                                  ("--d2_network", args.weight_D2, args.d2_network)):
+        if (weight or 0) > 0 and network not in HUL_DISCS:
+            raise NotImplementedError(
+                f"{flag} {network}: the port's discriminators are the Hul "
+                f"family {sorted(HUL_DISCS)}; the rest of the model zoo is "
+                f"ROADMAP item 7")
     if args.g_network != "UtNet":
         raise NotImplementedError(
             f"--g_network {args.g_network}: the port trains UtNet only; the "
@@ -452,8 +467,11 @@ def main(argv=None):
     debug_options = [o for o in args.debug_options if o in DEBUG_OPTIONS]
 
     weights = {"SSIM": args.weight_SSIM or 0, "MSSSIM": args.weight_MSSSIM or 0,
-               "L1": args.weight_L1 or 0, "MSE": args.weight_MSE or 0}
+               "L1": args.weight_L1 or 0, "MSE": args.weight_MSE or 0,
+               "D1": args.weight_D1 or 0, "D2": args.weight_D2 or 0}
     weights = steps.normalize_weights(weights)
+    use_d = weights["D1"] > 0
+    use_d2 = weights["D2"] > 0
 
     # the reference supplies learning rates via its preset configs
     # (configs/train_conf_*.yaml g_lr) — fail early without one
@@ -461,6 +479,9 @@ def main(argv=None):
         sys.exit("error: --g_lr is required (set it directly or load a "
                  "preset, e.g. --config nind_denoise_tpu_torch/configs/"
                  "train_conf_utnet_std.yaml)")
+    if (use_d and args.d_lr is None) or (use_d2 and args.d2_lr is None):
+        sys.exit("error: --d_lr/--d2_lr are required when the corresponding "
+                 "discriminator weight is non-zero")
 
     expname = (datetime.datetime.now().isoformat()[:-10] + "_"
                + "_".join(sys.argv).replace("/", "-"))[:255]
@@ -513,12 +534,56 @@ def main(argv=None):
     loader = ds_mod.Loader(dataset, bs_std, shuffle=True, drop_last=True,
                            num_threads=max(1, min(args.threads, 4)), seed=args.seed)
 
-    # ---- model + steps ----
+    # ---- device-resident data path (--device_cache) ----
+    device_cache = None
+    if args.device_cache > 0:
+        from . import device_cache as dc_mod
+
+        if bs_clean > 0:
+            p.print("Warning: --device_cache is incompatible with "
+                    "--clean_data_ratio (host-side batch mixing); using the "
+                    "host loader")
+        elif not dc_mod.supports(dataset):
+            p.print("Warning: --device_cache cannot express this dataset's "
+                    "host-side augmentations (JPEG/noise); using the host "
+                    "loader")
+        else:
+            t0 = time.time()
+            device_cache = dc_mod.DeviceEpochCache(
+                dataset, args.device_cache, device=device, seed=args.seed,
+                refresh_frac=args.device_cache_refresh,
+                threads=max(1, min(args.threads, 4)))
+            p.print(f"Device cache: {len(device_cache)} crop pairs on the device "
+                    f"({time.time() - t0:.1f}s fill); refresh "
+                    f"{args.device_cache_refresh:.0%}/epoch")
+            device_cache.start_refresh()
+
+    # ---- models + steps ----
     apply_fn = steps.bf16_apply if args.compute_dtype == "bfloat16" else steps.plain_apply
     gen = GeneratorWrapper(args, weights, apply_fn, p, device)
     if gen.resume_epoch is not None and args.start_epoch == 1:
         args.start_epoch = int(gen.resume_epoch) + 1
         p.print(f"Resuming at epoch {args.start_epoch}")
+
+    # the discriminators stay fp32 under --compute_dtype bfloat16, as in JAX
+    discs = []
+    if use_d:
+        discs.append(DiscriminatorWrapper(
+            args, network=args.d_network, funit=args.d_funit, lr=args.d_lr,
+            conditional=not args.not_conditional, seed=args.seed + 1,
+            advantage=args.discriminator_advantage, patience=args.patience,
+            model_path=args.d_model_path, keyword="discriminator", device=device))
+    if use_d2:
+        discs.append(DiscriminatorWrapper(
+            args, network=args.d2_network, funit=args.d2_funit, lr=args.d2_lr,
+            conditional=not args.not_conditional_2, seed=args.seed + 2,
+            advantage=args.discriminator2_advantage, patience=args.patience,
+            model_path=args.d2_model_path, keyword="discriminator2", device=device))
+    # slot the fooling terms by identity (D1/D2), not list position: a
+    # D2-only run must reach the weight_D2 term
+    disc_fns = [None, None]
+    for d in discs:
+        disc_fns[0 if d.wname == "D1" else 1] = d.pred_fn
 
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         sys.exit(f"error: --grad_accum {args.grad_accum} must divide "
@@ -526,7 +591,7 @@ def main(argv=None):
     train_step = steps.make_generator_train_step(
         apply_fn, weights, args.loss_cs,
         compute_ssim_anyway=args.compute_SSIM_anyway, remat=args.remat,
-        grad_accum=args.grad_accum)
+        grad_accum=args.grad_accum, disc_fns=tuple(disc_fns))
     warmup_step = steps.make_generator_train_step(
         apply_fn, {"MSE": 1.0}, args.loss_cs, remat=args.remat,
         grad_accum=args.grad_accum) if args.msssim_warmup_epochs > 0 else None
@@ -560,6 +625,11 @@ def main(argv=None):
     loss_hist = collections.deque(maxlen=args.patience)
     frozen_generator = args.freeze_generator
     generator_lr = args.g_lr
+    disc_lrs = [d.lr for d in discs]
+    # the D/G schedule's draws, in the JAX loop's order (nn_train.py:325-350)
+    sched_rng = random.Random(args.seed)
+    # the discriminators' fuzzy targets and the device cache's augmentations
+    draws = torch.Generator(device).manual_seed(args.seed)
 
     shutdown = GracefulShutdown()
     shutdown.install()
@@ -570,10 +640,16 @@ def main(argv=None):
             loss_g, loss_g_ssim = [], []
             # deferred-readback mode: exact epoch means via device-side sums
             g_w_sum, g_ssim_sum, g_count, g_ssim_count = 0.0, 0.0, 0, 0
+            loss_d_lists = [[] for _ in discs]
             epoch_start = time.time()
             batches_done = 0
-            n_batches = len(loader)
-            for iteration, (clean_np, noisy_np) in enumerate(loader, 1):
+            if device_cache is not None:
+                batch_iter = device_cache.epoch_batches(args.batch_size, draws)
+                n_batches = len(device_cache) // args.batch_size
+            else:
+                batch_iter = loader
+                n_batches = len(loader)
+            for iteration, (clean_b, noisy_b) in enumerate(batch_iter, 1):
                 if shutdown.requested:
                     break
                 if bs_clean > 0:
@@ -583,11 +659,33 @@ def main(argv=None):
                         p.print("Reloading clean_dataloader")
                         clean_iter = iter(clean_loader)
                         cb = next(clean_iter)  # non-empty: guarded at setup
-                    clean_np = np.concatenate([clean_np, cb[0]])
-                    noisy_np = np.concatenate([noisy_np, cb[1]])
+                    clean_b = np.concatenate([clean_b, cb[0]])
+                    noisy_b = np.concatenate([noisy_b, cb[1]])
                 summary = f"Epoch {epoch} batch {iteration}/{n_batches}: "
-                if not frozen_generator:
-                    clean, noisy = to_device(clean_np, device), to_device(noisy_np, device)
+                if device_cache is None:
+                    clean, noisy = to_device(clean_b, device), to_device(noisy_b, device)
+                else:
+                    clean, noisy = clean_b, noisy_b
+
+                # ---- stochastic D/G scheduling (nn_train.py:325-350) ----
+                d_learns = []
+                for di, d in enumerate(discs):
+                    learns = (d.loss + d.advantage) > sched_rng.random() or frozen_generator
+                    if learns:
+                        d.learn(clean, noisy, gen, args.loss_cs, generator=draws)
+                        loss_d_lists[di].append(d.loss)
+                        summary += (f"loss {d.wname}: {d.loss:.4f} "
+                                    f"({d.predictions_range}) ")
+                    d_learns.append(learns)
+                if not discs:
+                    g_learns = not frozen_generator
+                else:
+                    avg = statistics.mean(d.loss + d.advantage
+                                          for d, l in zip(discs, d_learns) if l) \
+                        if any(d_learns) else 0.0
+                    g_learns = not frozen_generator and (
+                        not any(d_learns) or avg < sched_rng.random())
+                if g_learns:
                     active_step = warmup_step if (warmup_step is not None and
                                                   epoch - args.start_epoch <
                                                   args.msssim_warmup_epochs) \
@@ -609,7 +707,11 @@ def main(argv=None):
                         if "SSIM" in gen.loss:
                             loss_g_ssim.append(gen.loss["SSIM"])
                         summary += f"loss G: {gen.get_loss(pretty_printed=True)}"
-                if not defer_metrics or iteration % args.log_interval == 0:
+                elif frozen_generator and discs:
+                    frozen_generator = discs[0].loss > 0.33 and \
+                        (len(discs) < 2 or discs[1].loss > 0.33)
+                if not defer_metrics or iteration % args.log_interval == 0 \
+                        or any(d_learns):
                     p.print(summary)
                 batches_done = iteration
 
@@ -618,6 +720,8 @@ def main(argv=None):
                 # epoch+1 (the partial epoch counts as done)
                 p.print(f"Graceful shutdown: checkpointing epoch {epoch} "
                         f"after {batches_done}/{n_batches} batches")
+                for d in discs:
+                    d.save_model(model_dir, epoch, d.keyword)
                 gen.save_model(model_dir, epoch)
                 p.print(f"Checkpoint saved; resume with --g_model_path "
                         f"{os.path.join(model_dir, f'generator_{epoch}.npz')}")
@@ -666,6 +770,18 @@ def main(argv=None):
                 jsonsaver.add_res(epoch, {"gen_lr": generator_lr})
             else:
                 p.print("Generator learned nothing")
+            for di, d in enumerate(discs):
+                if loss_d_lists[di]:
+                    avg_d = statistics.mean(loss_d_lists[di])
+                    p.print(f"Discriminator{di + 1} average normalized loss: {avg_d}")
+                    disc_lrs[di] = d.update_learning_rate(avg_d)
+                    d.save_model(model_dir, epoch, d.keyword)
+            if device_cache is not None:
+                # upload the background-refreshed block (if ready) and start
+                # the next re-draw; a slow host leaves the augmentations
+                # alone to re-randomize, never a stalled device
+                device_cache.maybe_swap()
+                device_cache.start_refresh()
             saved = False
             if not frozen_generator and args.checkpoint_interval > 0 and (
                     epoch % args.checkpoint_interval == 0
@@ -674,7 +790,8 @@ def main(argv=None):
                 saved = True
             stopping = (args.time_limit
                         and args.time_limit < time.time() - start_time) or \
-                (args.min_lr and generator_lr < args.min_lr)
+                (args.min_lr and generator_lr < args.min_lr and
+                 all(lr is None or lr < args.min_lr for lr in disc_lrs))
             if stopping:
                 if not saved and not frozen_generator:
                     gen.save_model(model_dir, epoch, checkpointer=ckpt_writer)

@@ -1,4 +1,4 @@
-"""AMSGrad as optax computes it, as a ``torch.optim.Optimizer``.
+"""AMSGrad and Adam as optax computes them, as ``torch.optim.Optimizer``s.
 
 The JAX trainer's optimizer is ``optax.inject_hyperparams(optax.amsgrad)``
 (``nind_denoise_tpu/train/steps.py:65-69``). Its update, in its order,
@@ -22,6 +22,12 @@ computed on the host from the step count, so a step never reads the
 device. Each line of the update is one ``torch._foreach_*`` call over all
 parameters. ``learning_rate`` is the hyperparameter that the trainer's
 ``set_lr``/``decay_lr`` change between steps.
+
+``Adam`` is the discriminators' ``inject_hyperparams(optax.adam)``
+(``nind_denoise_tpu/train/steps.py:65-69``, ``gan.py:72``): the same
+update without ``nu_max``, dividing by ``sqrt(nu_hat + eps_root) + eps``.
+``torch.optim.Adam`` is not it either: it folds the bias corrections into
+the step size and the denominator, so it rounds otherwise.
 """
 
 from __future__ import annotations
@@ -42,7 +48,10 @@ def _f32(v) -> float:
 class AmsGrad(torch.optim.Optimizer):
     """One parameter group. ``count`` is inject_hyperparams' step count and
     ``inner_count`` amsgrad's own; both advance once a step, and both are
-    checkpointed, as optax keeps them."""
+    checkpointed, as optax keeps them. ``MOMENTS`` names the per-parameter
+    state in optax's order."""
+
+    MOMENTS = ("mu", "nu", "nu_max")
 
     def __init__(self, params: Iterable[torch.Tensor], learning_rate: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -70,8 +79,8 @@ class AmsGrad(torch.optim.Optimizer):
         return self.param_groups[0]["params"]
 
     def moments(self, name: str) -> List[torch.Tensor]:
-        """``mu``, ``nu`` or ``nu_max`` of every parameter, in group order
-        (zeros before the first step, as optax's init)."""
+        """One of ``MOMENTS`` for every parameter, in group order (zeros
+        before the first step, as optax's init)."""
         out = []
         for p in self.params:
             st = self.state[p]
@@ -87,7 +96,7 @@ class AmsGrad(torch.optim.Optimizer):
         h = self.hyper
         params = self.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        mu, nu, nu_max = (self.moments(n) for n in ("mu", "nu", "nu_max"))
+        mu, nu = self.moments("mu"), self.moments("nu")
         b1, b2 = np.float32(h["b1"]), np.float32(h["b2"])
         one = np.float32(1)
 
@@ -104,11 +113,21 @@ class AmsGrad(torch.optim.Optimizer):
         t = np.float32(self.inner_count)
         mu_hat = torch._foreach_div(mu, float(one - b1 ** t))
         nu_hat = torch._foreach_div(nu, float(one - b2 ** t))
-        torch._foreach_maximum_(nu_max, nu_hat)
+        if "nu_max" in self.MOMENTS:
+            nu_max = self.moments("nu_max")
+            torch._foreach_maximum_(nu_max, nu_hat)
+            nu_hat = nu_max
 
-        den = torch._foreach_add(nu_max, h["eps_root"])
+        den = torch._foreach_add(nu_hat, h["eps_root"])
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, h["eps"])
         torch._foreach_div_(mu_hat, den)
         torch._foreach_mul_(mu_hat, float(-np.float32(h["learning_rate"])))
         torch._foreach_add_(params, mu_hat)
+
+
+class Adam(AmsGrad):
+    """optax's Adam under ``inject_hyperparams``: AMSGrad's update with the
+    bias-corrected second moment itself in the denominator."""
+
+    MOMENTS = ("mu", "nu")

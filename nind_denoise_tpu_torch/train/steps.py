@@ -1,11 +1,19 @@
-"""Generator train and eval steps on an ``nn.Module``: the counterparts of
-``nind_denoise_tpu/train/steps.py:38-237``.
+"""Train and eval steps on ``nn.Module``s: the counterparts of
+``nind_denoise_tpu/train/steps.py``.
 
 The reference's Generator (nn_common.py:163-272): AMSGrad with betas
 (beta1, 0.999) (``train/optim.AmsGrad``, which updates as optax does), a
-weighted loss over {SSIM, L1, MSE, MSSSIM} on ``loss_cs`` centre crops of
-the forward clipped to [0, 1], and a manual multiplicative LR decay. The
-discriminator terms D1/D2 are not ported (ROADMAP item 6.2).
+weighted loss over {SSIM, L1, MSE, MSSSIM, D1, D2} on ``loss_cs`` centre
+crops of the forward clipped to [0, 1], and a manual multiplicative LR
+decay. D1/D2 are the cGAN fooling terms, ``mean((preds - 1)^2)`` of a
+discriminator that takes the batch's BatchNorm statistics and changes in
+no buffer, parameter or gradient (``HulDisc.forward(frozen=True)``).
+
+The reference's Discriminator (nn_common.py:275-361): Adam without
+amsgrad (``train/optim.Adam``), MSE against fuzzy targets (real in
+[19/20, 1], fake in [0, 1/20] or exactly 0), conditional 6-channel
+input, the BN running stats threaded from the real side to the fake
+side, and one update on the two sides' summed gradients.
 
 Steps run in float32 with TF32 off for cuDNN and matmuls, the precision
 of the JAX reference on the CPU. A train step returns its metrics as 0-d
@@ -15,7 +23,8 @@ device tensors and never reads the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+import math
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..engine.tile_engine import _tf32
 from ..ops import losses as L
-from .optim import AmsGrad
+from .optim import Adam, AmsGrad
 
 LOSS_NAMES = ("SSIM", "L1", "MSE", "MSSSIM", "D1", "D2")
 
@@ -53,10 +62,12 @@ class TrainState:
     opt: AmsGrad
 
 
-def make_optimizer(model: nn.Module, lr: float, beta1: float) -> AmsGrad:
-    """AMSGrad with a run-time learning rate, as optax's
-    ``inject_hyperparams(amsgrad)(learning_rate=lr, b1=beta1, b2=0.999)``."""
-    return AmsGrad(model.parameters(), lr, b1=beta1, b2=0.999)
+def make_optimizer(model: nn.Module, lr: float, beta1: float,
+                   amsgrad: bool = True) -> AmsGrad:
+    """AMSGrad (or Adam) with a run-time learning rate, as optax's
+    ``inject_hyperparams(amsgrad | adam)(learning_rate=lr, b1=beta1,
+    b2=0.999)``."""
+    return (AmsGrad if amsgrad else Adam)(model.parameters(), lr, b1=beta1, b2=0.999)
 
 
 def get_lr(state: TrainState) -> float:
@@ -108,11 +119,14 @@ def bf16_apply(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 def make_generator_train_step(apply_fn: Callable, weights: Dict[str, float],
                               loss_cs: int, compute_ssim_anyway: bool = False,
-                              remat: bool = False, grad_accum: int = 1):
+                              remat: bool = False, grad_accum: int = 1,
+                              disc_fns: Tuple[Optional[Callable], ...] = (None, None)):
     """Returns ``step(state, clean, noisy) -> metrics`` on NCHW device
     tensors; it updates ``state.model`` in place. ``apply_fn(model, x)``
     is the forward (``plain_apply`` or ``bf16_apply``); ``remat``
     recomputes it in the backward (``torch.utils.checkpoint``).
+    ``disc_fns[i](generated_c, noisy_c)`` gives discriminator i's
+    predictions for the D{i+1} fooling term (``DiscriminatorWrapper.pred_fn``).
 
     ``grad_accum=N`` (N must divide the batch) runs N contiguous
     microbatches, sums their gradients, scales the sum by 1/N and applies
@@ -128,9 +142,17 @@ def make_generator_train_step(apply_fn: Callable, weights: Dict[str, float],
 
     def loss_and_grad(model, clean, noisy):
         gen = torch.clamp(fwd(model, noisy), 0.0, 1.0)
-        total, metrics = _quality_losses(center_crop(gen, loss_cs),
-                                         center_crop(clean, loss_cs),
+        gen_c = center_crop(gen, loss_cs)
+        total, metrics = _quality_losses(gen_c, center_crop(clean, loss_cs),
                                          weights, compute_ssim_anyway)
+        for i, dfn in enumerate(disc_fns):
+            wname = f"D{i + 1}"
+            if dfn is None or weights[wname] == 0:
+                continue
+            # fool the discriminator: MSE against the non-noisy real target 1
+            dloss = torch.mean((dfn(gen_c, center_crop(noisy, loss_cs)) - 1.0) ** 2)
+            metrics[wname] = dloss
+            total = total + weights[wname] * dloss
         total.backward()
         metrics["weighted"] = total
         return {k: v.detach() for k, v in metrics.items()}
@@ -179,3 +201,58 @@ def make_generator_eval_step(apply_fn: Callable, weights: Dict[str, float],
         return metrics
 
     return step
+
+
+# -- discriminator ------------------------------------------------------------
+
+def fuzzy_targets(u: torch.Tensor, target_real: bool, noisy: bool = True) -> torch.Tensor:
+    """gen_target_probabilities parity (nn_common.py:403-420) from the
+    uniform draws ``u``: real in [19/20, 1] (or exactly 1), fake in
+    [0, 1/20] (or exactly 0)."""
+    if target_real:
+        return 19.0 / 20.0 + u / 20.0 if noisy else torch.ones_like(u)
+    return u / 20.0 if noisy else torch.zeros_like(u)
+
+
+def make_discriminator_train_step(disc: nn.Module, opt: AmsGrad, conditional: bool = True):
+    """Returns ``step(clean_c, generated_c, noisy_c, fake_is_noisy,
+    generator=None, draws=None) -> (loss_real, loss_fake, ranges)`` on NCHW
+    tensors, device tensors out (the JAX step at ``steps.py:249-289``). The
+    real side (noisy targets) runs first and updates the BN running stats,
+    then the fake side (noisy targets if ``fake_is_noisy``), on the
+    generated crop detached; the two gradients sum into one ``opt`` step.
+    The targets' uniform draws come from ``generator`` (real side first),
+    or are ``draws`` = (real, fake), each of the predictions' shape.
+    ``ranges`` holds the real and the fake predictions' min and max."""
+
+    def side(batch, target_real, noisy_targets, u, generator):
+        preds = disc(batch)
+        if u is None:
+            u = torch.rand(preds.shape, generator=generator, device=preds.device)
+        loss = torch.mean((preds - fuzzy_targets(u, target_real, noisy_targets)) ** 2)
+        loss.backward()
+        return loss.detach(), preds.detach()
+
+    def step(clean_c, generated_c, noisy_c, fake_is_noisy: bool, generator=None, draws=None):
+        generated_c = generated_c.detach()
+        if conditional:
+            real_b = torch.cat([noisy_c, clean_c], dim=1)
+            fake_b = torch.cat([noisy_c, generated_c], dim=1)
+        else:
+            real_b, fake_b = clean_c, generated_c
+        u_r, u_f = draws if draws is not None else (None, None)
+        opt.zero_grad(set_to_none=True)
+        with _tf32(False):
+            loss_real, preds_r = side(real_b, True, True, u_r, generator)
+            loss_fake, preds_f = side(fake_b, False, fake_is_noisy, u_f, generator)
+            opt.step()
+        opt.zero_grad(set_to_none=True)  # free them for the generator's step
+        ranges = torch.stack([preds_r.min(), preds_r.max(), preds_f.min(), preds_f.max()])
+        return loss_real, loss_fake, ranges
+
+    return step
+
+
+def discriminator_scalar_loss(loss_fake: float, loss_real: float) -> float:
+    """(sqrt(fake) + sqrt(real)) / 2 — update_loss parity."""
+    return (math.sqrt(max(loss_fake, 0.0)) + math.sqrt(max(loss_real, 0.0))) / 2.0

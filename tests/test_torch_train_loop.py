@@ -219,8 +219,9 @@ def test_test_reserve_list_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--weight_D1", "0.5"], "item 6.2"), (["--weight_D2", "1"], "item 6.2"),
-    (["--device_cache", "8"], "item 6.2"), (["--g_network", "UNet"], "item 7"),
+    (["--weight_D1", "0.5", "--d_lr", "1e-4", "--d_network", "NLayerDiscriminator"], "item 7"),
+    (["--weight_D2", "1", "--d2_lr", "1e-4", "--d2_network", "PixelDiscriminator"], "item 7"),
+    (["--g_network", "UNet"], "item 7"),
     (["--coordinator", "localhost:1234"], "item 9"),
     (["--num_processes", "2"], "item 9"), (["--process_id", "0"], "item 9"),
 ])
@@ -247,6 +248,9 @@ def test_missing_lr_and_bad_grad_accum_exit(data, tmp_path):
     with pytest.raises(SystemExit, match="must divide"):
         loop.main(data["args"] + ["--models_dpath", str(tmp_path / "b"), "--device", "cpu",
                                   "--grad_accum", "3"])
+    with pytest.raises(SystemExit, match="d_lr/--d2_lr are required"):
+        loop.main(data["args"] + ["--models_dpath", str(tmp_path / "c"), "--device", "cpu",
+                                  "--weight_D2", "0.5"])
 
 
 def test_async_checkpointer_snapshots_and_propagates_errors(tmp_path):

@@ -1,6 +1,6 @@
-"""The port's optimizer (``train/optim.AmsGrad``) against the JAX trainer's,
-``optax.inject_hyperparams(optax.amsgrad)`` built by
-``nind_denoise_tpu.train.steps.make_optimizer``.
+"""The port's optimizers (``train/optim.AmsGrad`` and ``Adam``) against the
+JAX trainer's, ``optax.inject_hyperparams(optax.amsgrad | optax.adam)``
+built by ``nind_denoise_tpu.train.steps.make_optimizer``.
 
 The gradients grow for three steps and then shrink, so the second moment
 falls: there optax's maximum of the bias-corrected moment and torch's
@@ -20,26 +20,27 @@ import optax
 
 from nind_denoise_tpu.train import steps as jax_steps
 from nind_denoise_tpu_torch.train import steps
-from nind_denoise_tpu_torch.train.optim import AmsGrad
+from nind_denoise_tpu_torch.train.optim import Adam, AmsGrad
 
 SHAPES = [(3, 3, 4, 5), (5,), ()]
 STEPS = 20
 
 
-def _run(beta1=0.75):
+def _run(beta1=0.75, amsgrad=True):
     rng = np.random.default_rng(0)
     p0 = [np.asarray(rng.normal(0, 1, s), np.float32) for s in SHAPES]
     grads = [[np.asarray(rng.normal(0, 1, s) * (3.0 if k < 3 else 0.3), np.float32)
               for s in SHAPES] for k in range(STEPS)]
     lrs = [1e-4 * 0.95 ** (k // 5) for k in range(STEPS)]
 
-    opt = jax_steps.make_optimizer(1e-4, beta1)
+    opt = jax_steps.make_optimizer(1e-4, beta1, amsgrad=amsgrad)
     jp = {str(i): jnp.asarray(a) for i, a in enumerate(p0)}
     jstate = jax_steps.TrainState(jp, opt.init(jp))
     tp = [torch.from_numpy(a.copy()) for a in p0]
-    tstate = steps.TrainState(torch.nn.Module(), AmsGrad(tp, 1e-4, b1=beta1, b2=0.999))
+    tstate = steps.TrainState(torch.nn.Module(), (AmsGrad if amsgrad else Adam)(
+        tp, 1e-4, b1=beta1, b2=0.999))
     wit = [torch.from_numpy(a.copy()) for a in p0]
-    adam = torch.optim.Adam(wit, lr=1e-4, betas=(beta1, 0.999), amsgrad=True)
+    adam = torch.optim.Adam(wit, lr=1e-4, betas=(beta1, 0.999), amsgrad=amsgrad)
     for k in range(STEPS):
         jax_steps.set_lr(jstate, lrs[k])
         steps.set_lr(tstate, lrs[k])
@@ -68,6 +69,23 @@ def test_amsgrad_matches_optax_over_20_steps(beta1):
     # the moments too, and both step counts
     inner = jstate.opt_state.inner_state[0]
     for name in ("mu", "nu", "nu_max"):
+        for i, buf in enumerate(tstate.opt.moments(name)):
+            np.testing.assert_allclose(buf.numpy(), np.asarray(getattr(inner, name)[str(i)]),
+                                       rtol=1e-6, atol=0, err_msg=name)
+    assert tstate.opt.count == int(jstate.opt_state.count) == STEPS
+    assert tstate.opt.inner_count == int(inner.count) == STEPS
+
+
+@pytest.mark.parametrize("beta1", [0.5, 0.9])
+def test_adam_matches_optax_over_20_steps(beta1):
+    """The discriminators' Adam: ``make_optimizer(..., amsgrad=False)``."""
+    p0, ref, got, _, jstate, tstate = _run(beta1, amsgrad=False)
+    assert max(np.abs(r - a).max() for r, a in zip(ref, p0)) > 1e-4
+    for r, t in zip(ref, got):
+        np.testing.assert_allclose(t.numpy(), r, rtol=0, atol=1e-7)
+    inner = jstate.opt_state.inner_state[0]
+    assert tstate.opt.MOMENTS == ("mu", "nu") and "nu_max" not in tstate.opt.state[got[0]]
+    for name in tstate.opt.MOMENTS:
         for i, buf in enumerate(tstate.opt.moments(name)):
             np.testing.assert_allclose(buf.numpy(), np.asarray(getattr(inner, name)[str(i)]),
                                        rtol=1e-6, atol=0, err_msg=name)
