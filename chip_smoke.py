@@ -76,8 +76,13 @@ limit as nvidia-smi reports them):
    bias, and the forward's own epilogue), bounds, plain time,
    ``torch._int_mm`` over an im2col and cuDNN's bf16 conv; what torch on
    the card offers for an int8 conv;
-13. deriche: P2 (the Deriche IIR) bit-equal to its plain version at
-   (3, 2000, 3000) and (24, 480, 480), sigma 1 and 10, along each axis;
+13. deriche: P2 (the Deriche IIR, a chunked scan) at (3, 2000, 3000) and
+   (24, 480, 480), sigma 1 and 10, along each axis, and at lines longer
+   than a tile's segment ((1, 6, 40000) along W, (3, 9000, 24) along H: a
+   carry launch and the main one): bit-equal to ``deriche_axis_chunked``,
+   its order in plain torch, and within ``error_bound`` (4 x 2^-24 x the
+   feedback's two impulse-response sums x max|x|) of the sequential loop
+   run in float64, a bound the plain fp32 loop must meet too;
 14. int8: ``denoise_cli --tiff-input`` on the 6 MP TIFF with
    ``--compute_dtype int8`` and ``int8_static`` (P1, K2, K1 launches, wall,
    device time, PSNR against a float32 run at or above 45 / 42 dB), and
@@ -85,8 +90,10 @@ limit as nvidia-smi reports them):
 15. int8_serve: a server window in int8_static, each response bit-equal
    to the engine + RL run of its request, no coalesced engine group;
 16. gmic_fast_cli and rl_dt: ``denoise_cli --rl-psf gmic_fast`` at 6 MP
-   (40 P2 launches, no K1) and RL with dt 0.5 (20 K3 launches, no K1)
-   bit-equal to the plain iteration.
+   (40 P2 launches, no K1); RL with gmic_fast through P2 against RL with
+   P2 swapped for its plain loop, uint8 within 1 LSB and at least 99.9 %
+   equal, at 6 MP sigma 1 and a server group at sigma 10; and RL with dt
+   0.5 (20 K3 launches, no K1) bit-equal to the plain iteration.
 17. train: ``train.loop`` with ``train_conf_utnet_std.yaml`` (UtNet funit 64,
    batch 30, 184 px crops, MS-SSIM) for two epochs on seeded synthetic
    16-bit crops in the NIND layout: finite losses, ``trainres.json`` with
@@ -1410,38 +1417,62 @@ def phase_qconv(torch, card, batch: int = 8, cs: int = 504, f: int = 64,
 
 
 def phase_deriche(torch, card):
-    """P2 against its plain version, bit-equal, at the CLI's (3, 2000,
-    3000) and a server group's (24, 480, 480) planes, sigma 1 and 10,
-    along each axis; its warm time, the plain loop's, and the byte bound
-    (8 bytes an element). No single PyTorch call computes a recursive
-    filter, so there is no library time."""
+    """P2, the chunked scan, at the CLI's (3, 2000, 3000) and a server
+    group's (24, 480, 480) planes, sigma 1 and 10, along each axis, and at
+    lines longer than one tile's segment ((1, 6, 40000) along W, (3, 9000,
+    24) along H: a carry pass and the main pass): bit-equal to
+    ``deriche_axis_chunked`` (the kernel keeps its order) and within
+    ``error_bound`` of the sequential loop run in float64, which the plain
+    fp32 loop must meet too. The warm time through the wrapper, the plain
+    loop's, and the byte bound (8 bytes an element). No single PyTorch call
+    computes a recursive filter, so there is no library time."""
     from nind_denoise_tpu_torch.ops import deriche as D
 
     gen = torch.Generator(device=DEV).manual_seed(22)
-    out = {}
-    for shape in ((3, 2000, 3000), (24, 480, 480)):
-        x = torch.rand(shape, device=DEV, generator=gen)
-        for sigma in (1.0, 10.0):
-            for axis in (1, 2):
-                y = D.deriche_axis(x, sigma, axis)
-                ref = D.deriche_axis_reference(x, sigma, axis)
-                torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                check(torch.equal(y, ref),
-                      f"deriche {shape} sigma {sigma} axis {axis}: max err {err}")
-                bms, by = bound_ms(8.0 * x.numel(), 0.0, "float32")
-                rec = dict(shape=list(shape), sigma=sigma, axis=axis, max_abs_err=err,
-                           ms=time_ms(torch, lambda: D.deriche_axis(x, sigma, axis), 10),
-                           plain_ms=time_ms(torch, lambda: D.deriche_axis_reference(
-                               x, sigma, axis), 1),
-                           bound_ms=bms, bound_by=by, library_ms=None)
-                emit(card, phase="deriche", **rec)
-                out[(shape, sigma, axis)] = rec
+    out, errs = {}, []
+    cases = [(shape, sigma, axis) for shape in ((3, 2000, 3000), (24, 480, 480))
+             for sigma in (1.0, 10.0) for axis in (1, 2)]
+    cases += [((1, 6, 40000), 10.0, 2), ((3, 9000, 24), 10.0, 1)]
+    for shape, sigma, axis in cases:
+        x = torch.rand(shape, device=DEV, generator=gen) + 0.05
+        before = D.launches
+        y = D.deriche_axis(x, sigma, axis)
+        launches = D.launches - before
+        mirror = D.deriche_axis_chunked(x, sigma, axis)
+        ref = D.deriche_axis_reference(x, sigma, axis)
+        y64 = D.deriche_axis_reference(x.double(), sigma, axis)
+        torch.cuda.synchronize()
+        geo = D.geometry(shape[axis], axis)
+        check(launches == (2 if geo.segments > 1 else 1),
+              f"deriche {shape} axis {axis}: {launches} launches for {geo.segments} segments")
+        check(torch.equal(y, mirror), f"deriche {shape} sigma {sigma} axis {axis}: differs "
+              f"from the chunked order by {(y - mirror).abs().max().item()}")
+        bound = D.error_bound(sigma, x.abs().max().item())
+        err64 = (y.double() - y64).abs().max().item()
+        plain64 = (ref.double() - y64).abs().max().item()
+        check(err64 <= bound and plain64 <= bound,
+              f"deriche {shape} sigma {sigma} axis {axis}: |y - y64| {err64}, the plain "
+              f"loop's {plain64}, bound {bound}")
+        err = (y - ref).abs().max().item()
+        errs.append(err)
+        rec = dict(shape=list(shape), sigma=sigma, axis=axis, launches=launches,
+                   segments=geo.segments, equal_to_chunked_order=True, max_abs_err=err,
+                   err_f64=err64, plain_err_f64=plain64, error_bound=bound)
+        if shape in ((3, 2000, 3000), (24, 480, 480)):
+            bms, by = bound_ms(8.0 * x.numel(), 0.0, "float32")
+            o = torch.empty_like(x)
+            rec.update(ms=time_ms(torch, lambda: D.deriche_axis(x, sigma, axis, out=o), 20),
+                       plain_ms=time_ms(torch, lambda: D.deriche_axis_reference(
+                           x, sigma, axis), 1),
+                       bound_ms=bms, bound_by=by, library_ms=None)
+            out[(shape, sigma, axis)] = rec
+        emit(card, phase="deriche", **rec)
+        del x, y, mirror, ref, y64
     # the kernels line: one 6 MP blur at sigma 1 (both axes), as RL runs it
     h = out[((3, 2000, 3000), 1.0, 1)]
     w = out[((3, 2000, 3000), 1.0, 2)]
-    return dict(max_abs_err=max(r["max_abs_err"] for r in out.values()),
-                ms=(h["ms"] + w["ms"]) / 2, plain_ms=(h["plain_ms"] + w["plain_ms"]) / 2,
+    return dict(max_abs_err=max(errs), ms=(h["ms"] + w["ms"]) / 2,
+                plain_ms=(h["plain_ms"] + w["plain_ms"]) / 2,
                 bound_ms=h["bound_ms"], bound_by="bytes", library_ms=None)
 
 
@@ -1645,7 +1676,11 @@ def phase_int8_serve(torch, card, tmp, kernel_mods, ckpt):
 
 def phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt):
     """RL's other variants at 6 MP: ``denoise_cli --rl-psf gmic_fast``
-    (sigma 1 x 10: 40 P2 launches, no K1), then RL with dt 0.5 at sigma 1
+    (sigma 1 x 10: 40 P2 launches, no K1); RL with psf gmic_fast through P2
+    against RL with P2 swapped for its plain loop, at 6 MP sigma 1 and a
+    server group (8 x 480 x 480 x 3) at sigma 10: uint8 within 1 LSB, at
+    least 99.9 % equal, and the ten iterations' warm time; then RL with
+    dt 0.5 at sigma 1
     through ``rl_deblur_to_uint8`` (20 K3 launches, no K1), held bit-equal
     to the same iteration with K3 swapped for its plain version. Returns
     the launch counts by run."""
@@ -1668,6 +1703,33 @@ def phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt):
     check(u8.shape == (*HW, 3), "gmic_fast cli: bad output")
     emit(card, phase="gmic_fast_cli", shape=[*HW, 3], sigma=1, iterations=10, wall_s=wall,
          launches=gmic, output=os.path.basename(str(out)))
+
+    # RL through P2 against RL with P2 swapped for its plain version (the
+    # sequential loop): P2 keeps the chunked order, so the uint8 may move
+    # by one LSB where a value sits at a rounding edge, on few pixels
+    from nind_denoise_tpu_torch.ops import deriche as D
+
+    rng = np.random.default_rng(26)
+    for name, img, sigma in (("6mp", rng.random((*HW, 3), dtype=np.float32), 1.0),
+                             ("server_group", rng.random((8, 480, 480, 3), dtype=np.float32),
+                              10.0)):
+        u8_k = RL.rl_deblur_to_uint8(img, sigma, 10, psf="gmic_fast")
+        kernel_axis = D.deriche_axis
+        D.deriche_axis = lambda x, s, a, out=None: D.deriche_axis_reference(x, s, a)
+        try:
+            u8_p = RL.rl_deblur_to_uint8(img, sigma, 10, psf="gmic_fast")
+        finally:
+            D.deriche_axis = kernel_axis
+        diff = np.abs(u8_k.astype(np.int16) - u8_p.astype(np.int16))
+        equal = float((diff == 0).mean())
+        check(u8_k.shape == u8_p.shape and diff.max() <= 1 and equal >= 0.999,
+              f"gmic_fast RL {name}: P2 against the plain loop: max {diff.max()} LSB, "
+              f"{equal:.6f} equal")
+        xg = torch.from_numpy(img).to(DEV)
+        t_rl = time_ms(torch, lambda: RL.rl_deblur(xg, sigma, 10, psf="gmic_fast"), 3)
+        emit(card, phase="gmic_fast_rl_vs_plain", case=name, shape=list(img.shape), sigma=sigma,
+             iterations=10, max_lsb=int(diff.max()), equal_share=equal, ms_10_iterations=t_rl)
+        del xg
 
     img = np.random.default_rng(25).random((*HW, 3), dtype=np.float32)
     x = torch.from_numpy(img).to(DEV)

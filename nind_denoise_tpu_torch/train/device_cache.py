@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 # bytes per upload chunk during (re)fills
 _PUT_CHUNK_BYTES = 64 << 20
 
@@ -91,10 +93,12 @@ class DeviceEpochCache:
     ``capacity``: crops held (at most ``len(dataset)``). ``refresh_frac``:
     share of the cache re-drawn (new ISO pair and crop position, decoded on
     the host) and uploaded at each epoch boundary; 0 disables refresh.
+    ``device``: CUDA unless the caller asks for the CPU; raises where CUDA
+    is absent.
     The rows are stored as float16, the JAX trainer's storage type.
     """
 
-    def __init__(self, dataset, capacity: int, *, device="cpu", seed: int = 0,
+    def __init__(self, dataset, capacity: int, *, device=None, seed: int = 0,
                  refresh_frac: float = 0.25,
                  threads: int = 2):
         if not supports(dataset):
@@ -102,7 +106,7 @@ class DeviceEpochCache:
                 "DeviceEpochCache: dataset uses host-only augmentation "
                 "(JPEG compression / Gaussian noise) or lacks load_pair")
         self.dataset = dataset
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n = min(capacity, len(dataset))
         self.cs = dataset.cs
         self.exp_mult_min = float(getattr(dataset, "exp_mult_min", 1.0))

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from ..models import get_network, params_io
+from ..utils.device import resolve_device
 from . import steps
 
 
@@ -56,12 +57,14 @@ def init_disc(network: str, input_channels: int, funit: int, seed: int):
 class DiscriminatorWrapper:
     """One discriminator, its Adam, its plateau scheduler and its step.
     The module stays in train mode, as the JAX package applies it with
-    ``train=True`` everywhere."""
+    ``train=True`` everywhere. ``device``: CUDA unless the caller asks for
+    the CPU; raises where CUDA is absent."""
 
     def __init__(self, args, network: str, funit: int, lr: Optional[float],
                  conditional: bool, seed: int, advantage: float = 0.0,
                  patience: int = 3, model_path: Optional[str] = None,
-                 keyword: str = "discriminator", device="cpu"):
+                 keyword: str = "discriminator", device=None):
+        device = resolve_device(device)
         self.network = network
         self.keyword = keyword
         # the generator-loss weight this discriminator's fooling term feeds

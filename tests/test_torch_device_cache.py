@@ -47,7 +47,7 @@ def _pair(root, capacity, refresh, **kw):
                                 capacity, seed=0, cache_dtype="float16", refresh_frac=refresh,
                                 threads=1)
     p = dc.DeviceEpochCache(ds_mod.DenoisingDataset([root], cs=32, seed=4, **kw),
-                            capacity, seed=0, refresh_frac=refresh, threads=1)
+                            capacity, device="cpu", seed=0, refresh_frac=refresh, threads=1)
     return j, p
 
 
@@ -177,3 +177,26 @@ def test_supports_gate_and_the_cli_fallback_dataset(root):
         assert not dc.supports(bad) and not jax_dc.supports(bad)
     with pytest.raises(ValueError, match="host-only augmentation"):
         dc.DeviceEpochCache(jpeg, 4)
+
+
+@pytest.mark.parametrize("which", ["device_cache", "discriminator"])
+def test_default_device_is_cuda_and_raises_without_it(root, which, monkeypatch):
+    """The cache and the discriminator land on CUDA unless asked for the
+    CPU: without CUDA the default raises and names ``device='cpu'``."""
+    import types
+
+    from nind_denoise_tpu_torch.train import gan
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if which == "device_cache":
+        make = lambda **kw: dc.DeviceEpochCache(
+            ds_mod.DenoisingDataset([root], cs=32, seed=0), 2, threads=1, **kw)
+        placed = lambda obj: obj.cache_x.device
+    else:
+        make = lambda **kw: gan.DiscriminatorWrapper(
+            types.SimpleNamespace(beta1=0.75, models_dpath=None), "Hul112Disc", 2, 1e-4,
+            True, seed=0, **kw)
+        placed = lambda obj: next(obj.model.parameters()).device
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert placed(make(device="cpu")).type == "cpu"

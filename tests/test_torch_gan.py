@@ -139,7 +139,7 @@ def run(tmp_path_factory):
     d.save_model(str(tmp), 3, "discriminator")
     port = gan.DiscriminatorWrapper(ARGS, "Hul112Disc", funit=DF, lr=1e-4, conditional=True,
                                     seed=9, patience=2,
-                                    model_path=str(tmp / "discriminator_3.npz"))
+                                    model_path=str(tmp / "discriminator_3.npz"), device="cpu")
     outs = []
     for k, fake_is_noisy in ((1, False), (2, True)):
         batch = _batch(k)
@@ -290,7 +290,7 @@ def test_exact_resume_takes_the_uninterrupted_step(run, tmp_path):
     port.save_model(str(tmp_path), 9, "discriminator2")  # must not shadow it
     again = gan.DiscriminatorWrapper(ARGS, "Hul112Disc", funit=DF, lr=1e-4, conditional=True,
                                      seed=1, patience=2, model_path=str(tmp_path),
-                                     keyword="discriminator")
+                                     keyword="discriminator", device="cpu")
     assert again.scheduler.num_bad == port.scheduler.num_bad == 2
     batch = [_nchw(a) for a in _crops(*_batch(7))]
     draws = _jax_draws(jax.random.PRNGKey(3), (2, 1, 1, 1))
