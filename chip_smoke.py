@@ -122,6 +122,22 @@ limit as nvidia-smi reports them):
    the cache's bytes, a swap, no host-to-device copy in an epoch's steps
    but the permutation's, the sampler's time per batch, and steps per
    second against the host loader's.
+19. dataset_tools: two seeded sets laid out as NIND (an ISO100 baseline and
+   three noisy ISOs, 6 MP 16-bit PNGs): ``crop_ds`` at 256 / 192 (1,408
+   crops), the MS-SSIM audit of every crop pair on the card
+   (``make_dataset_crops_list``, 1,056 pairs: crops/s, pairs/s, the scoring
+   share of its wall, one pair's device time and kernel count; no kernel
+   launches), 16 of its scores against the CPU's on the same files (1e-6),
+   the CSV through ``PickyDenoisingDatasetFromList``, and
+   ``pick_validation_set`` from a reserve of one set.
+20. eval: ``denoise_dir`` over those scenes' six noisy images with the
+   funit-64 checkpoint, bf16, cs 504 / ucs 480: wall per image, the
+   engine's and the scores' times and device work, K2 5 launches an image,
+   peak memory; each image's three losses against the CPU's ``get_losses``
+   on the written files (1e-6), each written uint16 image bit-equal to
+   ``AdaptiveEngine.denoise_raw`` called directly, a ``--skip_existing``
+   rerun that decodes and denoises nothing and scores the same, and one
+   24 MP (4000 x 6000) pair's score: its time and peak memory.
 
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
@@ -959,31 +975,38 @@ def counted(torch, kernel_mods, fn):
     return out, {name: m.launches for name, m in kernel_mods.items()}
 
 
+def captured(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, text). The
+    text goes to stderr when the call raises."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args), buf.getvalue()
+    except BaseException:
+        print(buf.getvalue()[-6000:], file=sys.stderr)
+        raise
+
+
 def cli_run(cli, argv):
     """``cli.main(argv)`` with its standard output captured: (its result,
     the uint8 images it handed its encoder, its ``-v`` stage splits). The
     captured output goes to stderr when the run raises."""
-    import contextlib
-    import io
-
     import numpy as np
 
     seen = []
     encode = getattr(cli, "_encode_u8", None)
     if encode is not None:
         cli._encode_u8 = lambda u8, path, q: seen.append(np.array(u8)) or encode(u8, path, q)
-    buf = io.StringIO()
     try:
-        with contextlib.redirect_stdout(buf):
-            out = cli.main(argv)
-    except BaseException:
-        print(buf.getvalue()[-6000:], file=sys.stderr)
-        raise
+        out, text = captured(cli.main, argv)
     finally:
         if encode is not None:
             cli._encode_u8 = encode
     stages = [{k: float(v) for k, v, _ in STAGE.findall(line)}
-              for line in buf.getvalue().splitlines() if line.startswith("stages: ")]
+              for line in text.splitlines() if line.startswith("stages: ")]
     return out, seen, stages
 
 
@@ -2570,6 +2593,299 @@ def phase_gan(torch, card, tmp, kernel_mods, funit=64, batch=30, cs=184, d_funit
     return launches, cache_launches
 
 
+# -- both ends of the research loop: the dataset tools and evaluation ------------
+
+# NIND-shaped scenes of the dataset_tools and eval phases: two sets, an ISO100
+# baseline and three noisy ISOs each, at the CLIs' 6 MP (HW); and NIND's larger
+# scenes, 24 MP, for one whole-image score
+SCENE_ISOS = (("ISO100", 0.0), ("ISO800", 0.02), ("ISO3200", 0.05), ("ISO6400", 0.08))
+BIG_HW = (4000, 6000)
+SCORE_TOL = 1e-6  # a score on the card against the CPU's on the same files
+
+
+def write_scenes(root, hw, seed=17, sets=("SA", "SB"), isos=SCENE_ISOS, ext=".png"):
+    """Seeded 16-bit scenes in NIND's layout, ``<root>/<set>/NIND_<set>_<iso><ext>``:
+    a smooth clean image, and Gaussian noise that grows with the ISO."""
+    import concurrent.futures as cf
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for aset in sets:
+        os.makedirs(os.path.join(root, aset))
+        low = rng.random((hw[0] // 16, hw[1] // 16, 3), np.float32)
+        clean = cv2.resize(low, (hw[1], hw[0]), interpolation=cv2.INTER_CUBIC)
+        for iso, sigma in isos:
+            noisy = clean + sigma * rng.standard_normal(clean.shape, np.float32)
+            jobs.append((os.path.join(root, aset, f"NIND_{aset}_{iso}{ext}"),
+                         (np.clip(noisy, 0, 1) * 65535).astype(np.uint16)))
+    params = [cv2.IMWRITE_TIFF_COMPRESSION, 1] if ext == ".tif" else []
+    with cf.ThreadPoolExecutor(8) as pool:
+        ok = list(pool.map(lambda job: cv2.imwrite(*job, params), jobs))
+    check(all(ok), f"could not write the scenes under {root}")
+    return [path for path, _ in jobs]
+
+
+def timed_calls(torch, mod, name, log, events=False):
+    """Wrap ``mod.<name>`` to append each call's host seconds (and, with
+    ``events``, its CUDA-event milliseconds) to ``log``; returns the undo."""
+    fn = getattr(mod, name)
+
+    def spy(*args, **kw):
+        start = end = None
+        if events:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if events:
+            end.record()
+            end.synchronize()
+        log.append((time.perf_counter() - t0, start, end))
+        return out
+
+    setattr(mod, name, spy)
+    return lambda: setattr(mod, name, fn)
+
+
+def span_ms(entry):
+    _, start, end = entry
+    return start.elapsed_time(end)
+
+
+def device_work(torch, fn, calls=1):
+    """``fn()`` ``calls`` times under the profiler: the device time of its
+    kernels and copies (ms) and their count, each per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    work = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    return sum(e.self_device_time_total for e in work) / 1e3 / calls, len(work) / calls
+
+
+def phase_dataset_tools(torch, card, tmp, kernel_mods, scenes, hw, n_check=16):
+    """Seeded scenes written to ``scenes`` (``write_scenes``), crop_ds at
+    cs 256 / stride 192 on them, the MS-SSIM audit of
+    every crop pair on the card (``make_dataset_crops_list``) with 16 of its
+    scores against the CPU's on the same files, the CSV through
+    ``PickyDenoisingDatasetFromList``, and ``pick_validation_set`` from a
+    test reserve of one set. Returns the audit's launch counts."""
+    import numpy as np
+    import yaml
+
+    from nind_denoise_tpu_torch.core import imgio
+    from nind_denoise_tpu_torch.eval import score
+    from nind_denoise_tpu_torch.tools import crop_ds, make_dataset_crops_list, \
+        pick_validation_set
+    from nind_denoise_tpu_torch.train.dataset import PickyDenoisingDatasetFromList
+
+    t_phase = time.time()
+    write_scenes(scenes, hw)
+    scenes_s = time.time() - t_phase
+    n_sets, n_isos = len(os.listdir(scenes)), len(SCENE_ISOS)
+    n_images = n_sets * n_isos
+    grid = len(crop_ds.crop_grid(hw[1], hw[0], 256, 192))
+    res, lists = os.path.join(tmp, "cropped"), os.path.join(tmp, "lists")
+    t0 = time.time()
+    n_crops, _ = captured(crop_ds.main, ["--cs", "256", "--stride", "192",
+                                         "--orig_data", scenes, "--resdir", res])
+    crop_s = time.time() - t0
+    check(n_crops == n_images * grid, f"crop_ds wrote {n_crops} crops, expected "
+                                      f"{n_images} x {grid}")
+    root = os.path.join(res, os.path.basename(scenes) + "_256_192")
+
+    uploads, scores = [], []
+    undo = [timed_calls(torch, score, "to_device", uploads),
+            timed_calls(torch, score, "msssim", scores, events=True)]
+    try:
+        t0 = time.time()
+        (rows, _), launches = counted(torch, kernel_mods, lambda: captured(
+            make_dataset_crops_list.main, ["--train_data", root, "--out_dir", lists]))
+        audit_s = time.time() - t0
+    finally:
+        for u in undo:
+            u()
+    n_pairs = n_sets * grid * (n_isos - 1)  # (ISO100, noisy ISO) a crop
+    check(len(rows) == n_pairs, f"the audit scored {len(rows)} pairs, expected {n_pairs}")
+    check(not any(launches.values()), f"dataset_tools launched kernels: {launches}")
+    picks = np.linspace(0, len(rows) - 1, n_check).round().astype(int)
+    errs = [abs(rows[i][2] - score.msssim_files(rows[i][0], rows[i][1], device="cpu"))
+            for i in picks]
+    check(max(errs) <= SCORE_TOL, f"audit scores off the CPU's by {max(errs)}")
+    csv_path = os.path.join(lists, os.path.basename(root) + "-msssim.csv")
+    picky = PickyDenoisingDatasetFromList(csv_path, min_quality=0.0, cs=256, seed=0)
+    x, y = picky.load_pair(0)
+    check(len(picky) == sum(r[2] > 0 for r in rows) > 0 and x.shape == y.shape == (3, 256, 256),
+          f"the audit's CSV does not load: {len(picky)} pairs")
+    val, _ = captured(pick_validation_set.main, [
+        "--train_data", root, "--test_reserve", "SB", "-n", "300", "--seed", "0",
+        "--out_dir", os.path.join(tmp, "configs")])
+    with open(val) as f:
+        val_pairs = yaml.safe_load(f)
+    check(len(val_pairs) == min(300, n_pairs // n_sets)
+          and all(os.sep + "SB" + os.sep in a and os.sep + "SB" + os.sep in b
+                  for a, b in val_pairs), f"pick_validation_set: {val}")
+    # one pair's score alone: the card's work against the host's
+    pair = [score.to_device(imgio.load_img(p)) for p in rows[0][:2]]
+    alone_ms = time_ms(torch, lambda: score.msssim(*pair), 20)
+    pair_device_ms, pair_kernels = device_work(torch, lambda: score.msssim(*pair), 10)
+    score_s = sum(u[0] for u in uploads) + sum(e[0] for e in scores)
+    emit(card, phase="dataset_tools", seconds=time.time() - t_phase, scenes_s=scenes_s,
+         scenes=n_images, shape=[*hw, 3], cs=256, stride=192, crops=n_crops, crop_s=crop_s, crops_per_s=n_crops / crop_s,
+         audit_pairs=len(rows), audit_wall_s=audit_s, audit_pairs_per_s=len(rows) / audit_s,
+         audit_score_host_s=score_s, audit_score_share_of_wall=score_s / audit_s,
+         audit_msssim_event_span_ms_mean=float(np.mean([span_ms(e) for e in scores])),
+         audit_upload_ms_mean=1e3 * float(np.mean([u[0] for u in uploads])),
+         msssim_alone_ms=alone_ms, msssim_device_ms=pair_device_ms,
+         msssim_kernels=pair_kernels,
+         audit_device_share_of_wall=pair_device_ms * len(rows) / 1e3 / audit_s,
+         launches=launches, checked_vs_cpu=len(errs), max_abs_err_vs_cpu=max(errs),
+         picky_pairs=len(picky), validation_pairs=len(val_pairs))
+    return launches
+
+
+def eval_records(text):
+    """denoise_dir's per-image lines (``in: ..., out: ..., clean: ...``, then
+    the losses) -> [{"in", "out", "clean", "losses"}]."""
+    import ast
+
+    lines = text.splitlines()
+    recs = []
+    for line, nxt in zip(lines, lines[1:]):
+        m = re.match(r"in: (.*), out: (.*), clean: (.*)$", line)
+        if m:
+            recs.append(dict(zip(("in", "out", "clean"), m.groups()),
+                             losses=ast.literal_eval(nxt)))
+    return recs
+
+
+def phase_eval(torch, card, tmp, kernel_mods, scenes, ckpt, hw, big_hw=BIG_HW):
+    """``denoise_dir`` over the scenes' six noisy images with the funit-64
+    checkpoint, bf16, cs 504 / ucs 480: walls, the engine's device time,
+    score times, K2 launches, peak memory; each image's three losses
+    against the CPU's ``get_losses`` on the written files; each written
+    image bit-equal to ``AdaptiveEngine.denoise_raw`` called directly; a
+    ``--skip_existing`` rerun that decodes and denoises nothing and scores
+    the same; then one score of a 24 MP pair. Returns the launch counts."""
+    import concurrent.futures as cf
+    import shutil
+
+    import cv2
+    import numpy as np
+
+    from nind_denoise_tpu_torch.core import imgio
+    from nind_denoise_tpu_torch.engine import tile_engine
+    from nind_denoise_tpu_torch.eval import denoise_dir, score
+    from nind_denoise_tpu_torch.models import params_io
+
+    t_phase = time.time()
+    d = os.path.join(tmp, "eval")
+    model = os.path.join(d, "model", "generator_1.npz")  # its JSON files go beside it
+    os.makedirs(os.path.dirname(model))
+    shutil.copy(ckpt, model)
+    argv = ["--model_path", model, "--network", "UtNet", "--noisy_dir", scenes,
+            "--result_dir", os.path.join(d, "results"), "--cs", "504", "--ucs", "480"]
+    dens, losses = [], []
+    undo = [timed_calls(torch, tile_engine.AdaptiveEngine, "denoise_raw", dens, events=True),
+            timed_calls(torch, score, "losses", losses)]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        (overall, text), launches = counted(torch, kernel_mods,
+                                            lambda: captured(denoise_dir.main, argv))
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for u in undo:
+            u()
+    recs = eval_records(text)
+    n = len(recs)
+    check(n == 6 and len(dens) == n, f"eval: {n} images scored, {len(dens)} denoised")
+    check(launches["enc1"] == n * cli_batches(*hw)
+          and not any(v for k, v in launches.items() if k != "enc1"), f"eval: {launches}")
+    check(set(overall) == {"mse", "ssim", "msssim"}
+          and all(math.isfinite(v) for v in overall.values()), f"eval: overall {overall}")
+    for path in ("model/trainres.json", "model/testres.json", "results/model/res.txt"):
+        check(os.path.isfile(os.path.join(d, path)), f"eval: no {path}")
+
+    # the CPU's scores of the written files, computed beside the card's checks
+    with cf.ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(lambda: [score.get_losses(r["clean"], r["out"], device="cpu")
+                                   for r in recs])
+        engine = tile_engine.AdaptiveEngine("UtNet", params_io.load_generator(model),
+                                            cs=504, ucs=480, batch_size=8)
+        for r in recs:
+            raw, scale = imgio.load_img_raw(r["in"])
+            direct = engine.denoise_raw(raw, scale, out_dtype="uint16")
+            written = cv2.cvtColor(cv2.imread(r["out"], cv2.IMREAD_UNCHANGED),
+                                   cv2.COLOR_BGR2RGB)
+            check(np.array_equal(direct, written),
+                  f"eval: {r['out']} differs from AdaptiveEngine.denoise_raw")
+        # one image's device work: the denoise (upload to uint16 download)
+        # and its score (the upload of the written pixels and the losses)
+        base = score.to_device(imgio.load_img(recs[-1]["clean"]))
+        den_work = device_work(torch, lambda: engine.denoise_raw(raw, scale, out_dtype="uint16"))
+        score_work = device_work(torch, lambda: score.losses(base, score.to_device(direct)))
+        del engine, base
+
+        decodes = []
+        load_raw = imgio.load_img_raw
+        imgio.load_img_raw = lambda p: decodes.append(p) or load_raw(p)
+        try:
+            t0 = time.time()
+            (again, _), skip_launches = counted(torch, kernel_mods, lambda: captured(
+                denoise_dir.main, argv + ["--skip_existing"]))
+            skip_s = time.time() - t0
+        finally:
+            imgio.load_img_raw = load_raw
+        check(not decodes and not any(skip_launches.values()),
+              f"eval --skip_existing: decoded {decodes}, launched {skip_launches}")
+        check(again == overall, f"eval --skip_existing scored {again}, the run {overall}")
+
+        # NIND's larger scenes: a whole-image score is this path's largest allocation
+        big = write_scenes(os.path.join(tmp, "big"), big_hw, seed=18, sets=("SC",),
+                           isos=SCENE_ISOS[::3], ext=".tif")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        big_losses = score.get_losses(*big)
+        big_s = time.time() - t0
+        big_peak = torch.cuda.max_memory_allocated()
+        pair = [score.to_device(imgio.load_img(p)) for p in big]
+        big_device_ms = time_ms(torch, lambda: score.losses(*pair), 3)
+        del pair
+        check(all(math.isfinite(v) for v in big_losses.values()), f"eval: 24 MP {big_losses}")
+
+        errs = [max(abs(c[k] - r["losses"][k]) for k in c)
+                for c, r in zip(cpu.result(), recs)]
+    check(max(errs) <= SCORE_TOL, f"eval: card scores off the CPU's by {errs}")
+    emit(card, phase="eval", seconds=time.time() - t_phase, images=n, shape=[*hw, 3],
+         compute_dtype="bfloat16", cs=504, ucs=480, batch=8, wall_s=wall,
+         wall_s_per_image=wall / n,
+         denoise_host_ms=[1e3 * e[0] for e in dens],
+         denoise_event_span_ms=[span_ms(e) for e in dens],
+         denoise_device_ms=den_work[0], denoise_device_ops=den_work[1],
+         score_device_ms=score_work[0], score_device_ops=score_work[1],
+         device_share_of_wall=(den_work[0] + score_work[0]) * n / 1e3 / wall,
+         score_ms=[1e3 * e[0] for e in losses[:n]],
+         gen_score_ms=1e3 * sum(e[0] for e in losses[n:]),
+         launches=launches, enc1_per_image=launches["enc1"] / n,
+         peak_memory_allocated_gib=peak / 2 ** 30, overall=overall,
+         max_abs_err_vs_cpu=max(errs), bit_equal_to_direct_engine=True,
+         skip_existing={"wall_s": skip_s, "decodes": len(decodes), "launches": skip_launches},
+         big_pair={"shape": [*big_hw, 3], "get_losses_s": big_s, "losses_device_ms": big_device_ms,
+                   "peak_memory_allocated_gib": big_peak / 2 ** 30, "losses": big_losses})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2609,6 +2925,9 @@ def main() -> int:
         by_path.update(phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt))
         by_path["train"] = phase_train(torch, card, tmp, kernel_mods)
         by_path["gan"], by_path["gan_device_cache"] = phase_gan(torch, card, tmp, kernel_mods)
+        scenes = os.path.join(tmp, "NIND")
+        by_path["dataset_tools"] = phase_dataset_tools(torch, card, tmp, kernel_mods, scenes, HW)
+        by_path["eval"] = phase_eval(torch, card, tmp, kernel_mods, scenes, ckpt, HW)
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

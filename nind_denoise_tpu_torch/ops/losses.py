@@ -85,6 +85,13 @@ def _scale_weights(weights: tuple, device: torch.device) -> torch.Tensor:
 def ms_ssim(x: torch.Tensor, y: torch.Tensor, weights=MS_SSIM_WEIGHTS,
             **kwargs) -> torch.Tensor:
     """(N,) per-sample MS-SSIM."""
+    return ssim_and_ms_ssim(x, y, weights, **kwargs)[1]
+
+
+def ssim_and_ms_ssim(x: torch.Tensor, y: torch.Tensor, weights=MS_SSIM_WEIGHTS,
+                     **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((N,) SSIM, (N,) MS-SSIM): MS-SSIM's first scale is SSIM's own
+    computation, so both come from one pass, each equal to its function's."""
     if min(x.shape[2], x.shape[3]) < MS_SSIM_MIN_SIZE:
         raise ValueError(
             f"ms_ssim needs inputs >= {MS_SSIM_MIN_SIZE} px per side "
@@ -92,16 +99,18 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, weights=MS_SSIM_WEIGHTS,
             f"VALID windows run out of pixels below that")
     w = _scale_weights(tuple(weights), x.device)
     css = []
-    ss = None
+    ss = ssim0 = None
     for i in range(len(weights)):
         if i > 0:
             x = avgpool2x_ceil(x)
             y = avgpool2x_ceil(y)
         ss, cs = ssim_per_channel(x, y, **kwargs)
+        if i == 0:
+            ssim0 = ss.mean(dim=-1)
         css.append(torch.relu(cs))
     stack = torch.stack(css[:-1] + [torch.relu(ss)], dim=-1)  # (N, C, S)
     msss = torch.prod(stack ** w, dim=-1)
-    return msss.mean(dim=-1)
+    return ssim0, msss.mean(dim=-1)
 
 
 def ssim_loss(x, y, **kwargs):

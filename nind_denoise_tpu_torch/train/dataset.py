@@ -19,9 +19,10 @@ src/nind_denoise/dataset_torch_3.py:
   ``PickyDenoisingDatasetFromList`` (:281-298).
 
 Batches come out NHWC float32 numpy through ``Loader``, a threaded
-prefetch iterator; the trainer moves them to the device as NCHW. The
-MS-SSIM audit of every crop pair (``list_content_quality``) belongs to the
-dataset tools and is not copied here.
+prefetch iterator; the trainer moves them to the device as NCHW.
+``list_content_quality`` audits every crop pair by MS-SSIM on the device
+(``eval/score.py``) and writes the ``<dsname>-msssim.csv`` that
+``PickyDenoisingDatasetFromList`` reads.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ import yaml
 from ..core import imgio
 
 CROP_SIZELIMIT = 10_000_000  # 10 MB per crop file
+# host threads that decode crop pairs ahead of the MS-SSIM audit's scoring
+# (tools/score_breakdown.py sweeps it on the card)
+AUDIT_DECODE_THREADS = 4
 
 
 def sort_isos(raw_isos: Sequence[str]) -> Tuple[List[str], List[str]]:
@@ -168,6 +172,43 @@ class DenoisingDataset:
             for b in bisos:
                 for n in isos:
                     yield self._resolve(template, b), self._resolve(template, n)
+
+    def list_content_quality(self, export: bool = False, outdir: str = "datasets",
+                             device=None):
+        """MS-SSIM audit of every (gt, noisy) crop pair -> optional CSV.
+
+        One pair at a time on ``device`` (CUDA unless "cpu"), in
+        ``all_crop_pairs`` order, while ``AUDIT_DECODE_THREADS`` host
+        threads decode up to twice as many pairs ahead."""
+        import concurrent.futures as cf
+
+        from ..eval import score
+        from ..utils.device import resolve_device
+
+        def decode(pair):
+            return imgio.load_img(pair[0]), imgio.load_img(pair[1])
+
+        dev = resolve_device(device)
+        pairs = list(self.all_crop_pairs())
+        ahead = 2 * AUDIT_DECODE_THREADS
+        rows = []
+        with cf.ThreadPoolExecutor(max_workers=AUDIT_DECODE_THREADS) as pool:
+            decoded = [pool.submit(decode, p) for p in pairs[:ahead]]
+            for i, (xpath, ypath) in enumerate(pairs):
+                if i + ahead < len(pairs):
+                    decoded.append(pool.submit(decode, pairs[i + ahead]))
+                x, y = decoded[i].result()
+                decoded[i] = None  # free the pixels
+                rows.append((xpath, ypath, score.msssim(score.to_device(x, dev),
+                                                        score.to_device(y, dev))))
+                print(rows[-1])
+        if export:
+            from ..utils import utilities
+
+            outpath = os.path.join(outdir, self.dsname + "-msssim.csv")
+            utilities.list_of_tuples_to_csv(rows, ("xpath", "ypath", "score"), outpath)
+            print(f"Quality check exported to {outpath}")
+        return rows
 
     # -- item assembly ---------------------------------------------------------
 

@@ -75,6 +75,10 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 train = {"nind_denoise_tpu_torch.train." + m for m in ("dataset", "loop", "optim", "steps")}
 assert train | {"nind_denoise_tpu_torch.ops.losses"} <= set(sys.modules)
+tools = {"nind_denoise_tpu_torch.eval." + m for m in ("score", "denoise_dir", "grapher")} | {
+    "nind_denoise_tpu_torch.tools." + m for m in (
+        "crop_ds", "filter_dataset_by_iso", "make_dataset_crops_list", "pick_validation_set")}
+assert tools <= set(sys.modules)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "nind_denoise_tpu" or m.startswith("nind_denoise_tpu."))
 assert not bad, bad
@@ -98,6 +102,31 @@ def test_entry_points_without_a_device_raise_when_cuda_is_absent(
         port_cli.main([str(tif), "--tiff-input", "--model_path", checkpoint,
                        "-o", str(tmp_path)])
     assert not (tmp_path / "img.jpg").exists()
+
+    # denoise_dir and the crop audit: CUDA unless --device cpu
+    from nind_denoise_tpu_torch.eval import denoise_dir
+    from nind_denoise_tpu_torch.tools import make_dataset_crops_list
+
+    scene = tmp_path / "scenes" / "S"
+    scene.mkdir(parents=True)
+    crops = tmp_path / "DS_176_88" / "S"
+    for iso in ("ISO100", "ISO800"):
+        img = np.full((176, 176, 3), 30000, np.uint16)
+        cv2.imwrite(str(scene / f"NIND_S_{iso}.png"), img)
+        (crops / iso).mkdir(parents=True)
+        cv2.imwrite(str(crops / iso / f"NIND_S_{iso}_0_0_88.png"), img)
+    dd_argv = ["--model_path", checkpoint, "--network", "UtNet", "--cs", "104",
+               "--ucs", "88", "--noisy_dir", str(tmp_path / "scenes"),
+               "--result_dir", str(tmp_path / "results")]
+    audit_argv = ["--train_data", str(tmp_path / "DS_176_88"),
+                  "--out_dir", str(tmp_path / "lists")]
+    for main, argv in ((denoise_dir.main, dd_argv),
+                       (make_dataset_crops_list.main, audit_argv)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+        main(argv + ["--device", "cpu"])
+    assert (tmp_path / "results" / "utnet" / "NIND_S_ISO800.png").is_file()
+    assert (tmp_path / "lists" / "DS_176_88-msssim.csv").is_file()
 
 
 @pytest.mark.parametrize("hw", [(150, 170), (40, 50)])  # tiled, tiny-image path
