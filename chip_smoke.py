@@ -138,6 +138,23 @@ limit as nvidia-smi reports them):
    ``AdaptiveEngine.denoise_raw`` called directly, a ``--skip_existing``
    rerun that decodes and denoises nothing and scores the same, and one
    24 MP (4000 x 6000) pair's score: its time and peak memory.
+21. unet_cli: ``denoise_cli --tiff-input`` with a model table entry whose
+   network is UNet (seeded full-width weights and BatchNorm state), bf16,
+   cs 440 / ucs 320, on the 6 MP TIFF: wall, device time, peak memory, K1
+   10 and K2 0 launches; the bf16 output's PSNR against the card's fp32 run
+   (TF32 off), with a floor; the card's fp32 uint8 within 1 LSB of the
+   CPU's on a 512 x 768 image; three ``DenoiseService("UNet", ...)``
+   requests, each bit-equal to the engine + RL run of its image.
+22. unet_train: ``train_conf_unet.yaml`` with ``--weight_MSSSIM 0
+   --weight_MSE 1`` (batch 20, cs 220, loss_cs 161, fp32) for two epochs
+   of two steps on seeded 256 px crops, a resume with ``--compute_dtype
+   bfloat16`` (warns, trains fp32), warm step times with the BatchNorm
+   kernels' share, and one step from the run's checkpoint on the card
+   against the CPU (losses, gradient, BN running stats, parameters).
+23. hul_gen_train: ``--g_network Hulb128Net --cs 128 --loss_cs 120
+   --batch_size 12 --g_funit 32`` with MSE, one epoch of three steps in fp32
+   and in bf16, warm step times, one step card against CPU, and
+   Hulbs128Net's forward card against CPU.
 
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
@@ -1567,7 +1584,7 @@ def phase_int8(torch, card, tmp, kernel_mods, tif, ckpt):
         by_run[f"int8_cli_{mode}"] = launches
 
     # the forward alone, one batch of 8 x 504^2 bf16 tiles
-    model = params_io.load_generator(ckpt, "PReLU")
+    model = params_io.load_generator(ckpt, "UtNet", "PReLU")
     gen = torch.Generator(device=DEV).manual_seed(23)
     x = torch.rand(FWD[0], 3, FWD[1], FWD[1], device=DEV, generator=gen).to(torch.bfloat16)
     fwd, top, p1_share = {}, {}, {}
@@ -1840,44 +1857,41 @@ def train_batch(torch, root, batch, cs):
             torch.from_numpy(noisy).permute(0, 3, 1, 2).contiguous())
 
 
-def train_step_times(torch, ckpt, clean, noisy, reps=5):
-    """Warm ``utnet_std`` steps (MS-SSIM, AMSGrad, lr 1e-4, beta1 0.75)
-    from ``ckpt`` on one batch, fp32 (TF32 off) and bf16: ms a step from
-    CUDA events, crops/s, and the peak memory allocated."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def train_step_times(torch, ckpt, clean, noisy, reps=5, network="UtNet", weights=None,
+                     loss_cs=None, dtypes=("float32", "bfloat16")):
+    """Warm steps of ``network`` (default ``utnet_std``: MS-SSIM, AMSGrad,
+    lr 1e-4, beta1 0.75) from ``ckpt`` on one batch per compute dtype, fp32
+    (TF32 off) and bf16 (``steps.bf16_apply``): ms a step from CUDA events,
+    crops/s, the peak memory allocated, device time a step, its largest
+    kernels and the BatchNorm kernels' share of it."""
     from nind_denoise_tpu_torch.models import params_io
     from nind_denoise_tpu_torch.train import steps
 
     clean, noisy = clean.to(DEV), noisy.to(DEV)
     out = {}
-    for dtype, apply in (("float32", steps.plain_apply), ("bfloat16", steps.bf16_apply)):
-        model = params_io.load_generator(ckpt).to(DEV)
+    for dtype in dtypes:
+        apply = steps.bf16_apply if dtype == "bfloat16" else steps.plain_apply
+        model = params_io.load_generator(ckpt, network).to(DEV).train()
         state = steps.TrainState(model, steps.make_optimizer(model, 1e-4, 0.75))
-        step = steps.make_generator_train_step(apply, {"MSSSIM": 1}, clean.shape[-1])
+        step = steps.make_generator_train_step(apply, weights or {"MSSSIM": 1},
+                                               loss_cs or clean.shape[-1])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ms = time_ms(torch, lambda: step(state, clean, noisy), reps)
         peak = torch.cuda.max_memory_allocated()
         loss = float(step(state, clean, noisy)["weighted"])
-        check(0 < loss < 1, f"train step {dtype}: loss {loss}")
+        check(0 < loss < 1, f"{network} train step {dtype}: loss {loss}")
         # where a step's device time goes: two more steps under the profiler
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                step(state, clean, noisy)
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            # device ranges of record_function (the optimizer's step) hold
-            # kernels counted on their own
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-                by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.self_device_time_total
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        kernels = device_kernels(torch, lambda: [step(state, clean, noisy) for _ in range(2)],
+                                 top=None)
+        device_ms = sum(kernels.values())
+        bn_ms = sum(v for k, v in kernels.items()
+                    if re.search(r"batch_?norm|bn_(fw|bw)|welford", k, re.I))
         out[dtype] = {"ms_per_step": ms, "crops_per_s": clean.shape[0] / ms * 1e3,
                       "peak_memory_allocated_gib": peak / 2 ** 30, "loss": loss,
-                      "device_ms_per_step": sum(by_name.values()) / 2e3,
-                      "top_device_ms_per_step": {k: v / 2e3 for k, v in top}}
+                      "device_ms_per_step": device_ms / 2,
+                      "bn_kernels_share_of_device_time": bn_ms / device_ms,
+                      "top_device_ms_per_step": {k: v / 2 for k, v in list(kernels.items())[:8]}}
         del model, state
     return out
 
@@ -2886,6 +2900,316 @@ def phase_eval(torch, card, tmp, kernel_mods, scenes, ckpt, hw, big_hw=BIG_HW):
     return launches
 
 
+# The UNet and Hul-generator phases (unet_cli, unet_train, hul_gen_train).
+# UNet's bf16 CLI output against its own fp32 run (TF32 off) on the card,
+# after RL, as a PSNR of the pre-encode uint8 (dB): bf16 convs with fp32
+# BatchNorm lie ~2e-3 RMS from fp32 (tests/test_torch_unet.py, CPU).
+UNET_CLI_PSNR_DB = 40.0
+UNET_CPU_HW = (512, 768)  # the card-vs-CPU fp32 CLI check's image
+# A UNet or Hul generator step resumed from its run's checkpoint, card
+# against CPU (generator_step_vs_cpu): losses and gradients as the train
+# phase's (TRAIN_*); the BN running stats to 1e-4 of max(1, |stat|); the
+# card's update to the CPU's AMSGrad on the card's gradient, 1e-6 absolute
+# (the fp32 rounding of an update of at most lr, 3e-4, in parameters below
+# ~2: a few ulps).
+UNET_BN_TOL, GEN_UPDATE_TOL = 1e-4, 1e-6
+HUL_FWD_TOL = 1e-4  # Hulbs128Net's fp32 forward, card (TF32 off) vs CPU
+
+
+def with_model_entry(cli, name, entry):
+    """``cli``'s model table with ``name`` -> ``entry`` added (the way a user
+    adds a network to ``operations.yaml``); returns the restore function."""
+    read = cli.xmp.read_config
+
+    def read_with(*a, **kw):
+        cfg = read(*a, **kw)
+        cfg["models"][name] = dict(entry)
+        return cfg
+
+    cli.xmp.read_config = read_with
+    return lambda: setattr(cli.xmp, "read_config", read)
+
+
+def phase_unet_cli(torch, card, tmp, kernel_mods, tif):
+    """``denoise_cli --tiff-input`` with a model table entry whose network is
+    UNet (seeded full-width weights, BN state), bf16, UNet's cs 440 / ucs
+    320, on the 6 MP TIFF: warm wall, device time, peak memory, K1 10 and K2
+    0 launches; the bf16 output against the card's fp32 run (TF32 off) as a
+    PSNR with a floor; the card's fp32 uint8 within 1 LSB of the CPU's on
+    a 512 x 768 image; then ``DenoiseService("UNet", ...)`` requests, each
+    bit-equal to the engine + RL run of its image. Returns the warm CLI
+    run's launch counts."""
+    import cv2
+    import numpy as np
+
+    from nind_denoise_tpu_torch.ops import rl_deblur as RL
+    from nind_denoise_tpu_torch.pipeline import denoise_cli
+    from nind_denoise_tpu_torch.pipeline import serve as S
+    from nind_denoise_tpu_torch.tools import fixtures
+
+    t0 = time.time()
+    d = os.path.join(tmp, "unet")
+    os.makedirs(os.path.join(d, "out"))
+    ckpt = os.path.join(d, "generator_1.npz")
+    fixtures.write_unet_checkpoint(ckpt, seed=13)
+    restore = with_model_entry(denoise_cli, "unet", {"path": ckpt, "network": "UNet"})
+    argv = [tif, "--tiff-input", "--model", "unet", "-o", os.path.join(d, "out"),
+            "--batch_size", "8"]
+    try:
+        cli_run(denoise_cli, argv)  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        (out, seen, _), launches = counted(torch, kernel_mods, lambda: cli_run(denoise_cli, argv))
+        wall = time.time() - t1
+        peak = torch.cuda.max_memory_allocated()
+        check(launches["rl_iter"] == 10 and sum(launches.values()) == 10,
+              f"unet_cli: launches {launches}, expected rl_iter 10 and nothing else")
+        img = cv2.imread(str(out))
+        check(img is not None and img.shape == (*HW, 3), f"unet_cli: bad output {out}")
+        kernels = device_kernels(torch, lambda: cli_run(denoise_cli, argv), top=None)
+        device_ms, top = sum(kernels.values()), dict(list(kernels.items())[:8])
+        fp32 = cli_run(denoise_cli, argv + ["--compute_dtype", "float32",
+                                            "--precision", "float32"])[1][0]
+        psnr = psnr_u8(seen[0], fp32)
+        check(psnr >= UNET_CLI_PSNR_DB, f"unet_cli: bf16 vs fp32 PSNR {psnr} dB")
+        small = os.path.join(d, "small.tif")
+        rng = np.random.default_rng(14)
+        check(cv2.imwrite(small, rng.integers(0, 65536, (*UNET_CPU_HW, 3)).astype(np.uint16)),
+              "could not write the TIFF")
+        t2 = time.time()
+        u8 = [cli_run(denoise_cli, [small, "--tiff-input", "--model", "unet", "-o",
+                                    os.path.join(d, "out"), "--compute_dtype", "float32",
+                                    "--precision", "float32", "--device", dev])[1][0]
+              for dev in (DEV, "cpu")]
+        cpu_s = time.time() - t2
+        diff = max_lsb(*u8)
+        check(diff <= 1, f"unet_cli: card and CPU differ by {diff} LSB")
+    finally:
+        restore()
+
+    svc = S.DenoiseService("UNet", ckpt, batch_size=8, compute_dtype="bfloat16")
+    try:
+        reqs = [rng.integers(0, 65536, hw + (3,), dtype=np.uint16)
+                for hw in ((480, 480), (480, 480), (1000, 1500))]
+        bodies = []
+        for raw in reqs:
+            ok, buf = cv2.imencode(".png", raw[..., ::-1])
+            check(ok, "PNG encode failed")
+            body, n = counted(torch, kernel_mods, lambda: svc.denoise_bytes(
+                buf.tobytes(), output="png", iterations=10))
+            check(n["rl_iter"] == 10 and sum(n.values()) == 10, f"unet serve: launches {n}")
+            bodies.append(body)
+        equal = []
+        for raw, body in zip(reqs, bodies):
+            got = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_UNCHANGED)[..., ::-1]
+            want = RL.rl_to_u8_device(svc._adaptive.denoise_raw(raw, 65535.0, out_dtype="device"),
+                                      1.0, 10).cpu().numpy()
+            equal.append(bool(np.array_equal(got, want)))
+        check(all(equal), f"unet serve: responses equal to the engine + RL run: {equal}")
+    finally:
+        svc.close()
+    emit(card, phase="unet_cli", shape=[*HW, 3], compute_dtype="bfloat16", cs=440, ucs=320,
+         wall_s=wall, mp_per_s=HW[0] * HW[1] / 1e6 / wall, device_ms=device_ms,
+         device_busy_share=device_ms / 1e3 / wall, top_device_ms=top,
+         peak_memory_allocated_gib=peak / 2 ** 30, launches=launches,
+         psnr_bf16_vs_fp32_db=psnr, psnr_floor_db=UNET_CLI_PSNR_DB,
+         cpu_check={"shape": [*UNET_CPU_HW, 3], "max_lsb_diff_cuda_vs_cpu": diff,
+                    "seconds": cpu_s},
+         serve={"shapes": [list(r.shape) for r in reqs], "equal_to_engine_rl_run": equal},
+         phase_s=time.time() - t0)
+    return launches
+
+
+def generator_step_vs_cpu(torch, ckpt, network, weights, lr, beta1, loss_cs, clean, noisy,
+                          activation="PReLU"):
+    """One fp32 step (TF32 off) of ``network`` resumed from ``ckpt`` as the
+    trainer resumes it (weights, BN state, AMSGrad), on the card and on the
+    CPU on the same batch, and on the CPU in float64 (reported). Held: the
+    losses and the gradient's norm to the TRAIN_* bounds, the BN running
+    stats to ``UNET_BN_TOL``, no parameter apart by more than the learning
+    rate, and the card's update to the CPU's AMSGrad applied to the card's
+    own gradient from the same state (``GEN_UPDATE_TOL``). The share of
+    parameters more than 1 % of the learning rate apart is reported, not
+    held: from the run's four-step AMSGrad state an element whose gradient
+    is small against its rounding (the biases of the convs before each
+    BatchNorm have a gradient of 0 in exact arithmetic) moves by a noisy
+    fraction of the learning rate, and the card's cuDNN gradient lies a few
+    times further from float64 than the CPU's (UNet, card against CPU:
+    0.21 %, 0.0099 % and 1.16 % of the parameters in three runs)."""
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.train import loop, steps
+
+    tree = params_io.load_npz(ckpt)
+
+    def resumed(dev, dt):
+        model = params_io.load_generator(ckpt, network, activation).to(dev, dt).train()
+        opt = steps.make_optimizer(model, lr, beta1)
+        loop.GeneratorWrapper.restore_opt(opt, model, tree["opt"], tree["params"], network)
+        return model, opt
+
+    res = []
+    for dev, dt in ((DEV, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        model, opt = resumed(dev, dt)
+        names = [k for k, _ in model.named_parameters()]
+        m = steps.make_generator_train_step(steps.plain_apply, weights, loss_cs)(
+            steps.TrainState(model, opt), clean.to(dev, dt), noisy.to(dev, dt))
+        sd = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
+        grads = [p.grad.detach().cpu() for p in model.parameters()]
+        res.append((float(m["weighted"]), grads, sd, opt.hyper["learning_rate"]))
+    (lg, grads_card, sg, lr_now), (lc, grads_cpu, sc, _), (l64, grads64, s64, _) = res
+    gg, gc, g64 = (torch.cat([g.double().flatten() for g in gs])
+                   for gs in (grads_card, grads_cpu, grads64))
+    # the update alone: the CPU's AMSGrad from the same state on the card's gradient
+    model, opt = resumed("cpu", torch.float32)
+    for p, g in zip(model.parameters(), grads_card):
+        p.grad = g.clone()
+    opt.step()
+    upd = max(((p.detach().double() - sg[k]).abs().max().item()
+               for k, p in model.named_parameters()), default=0.0)
+    stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+    bn = max([((sg[k] - sc[k]).abs() / sc[k].abs().clamp_min(1)).max().item() for k in stats],
+             default=0.0)
+    dp = torch.cat([(sg[k] - sc[k]).abs().flatten() for k in names])
+    share64 = {name: (torch.cat([(sd[k] - s64[k]).abs().flatten() for k in names])
+                      > lr_now / 100).float().mean().item()
+               for name, sd in (("cuda", sg), ("cpu", sc))}
+    rec = {"shape": list(clean.shape), "resumed_from": os.path.basename(ckpt),
+           "checkpoint_epoch": tree.get("epoch"), "lr": lr_now,
+           "loss_cuda": lg, "loss_cpu": lc, "loss_float64": l64, "loss_abs_diff": abs(lg - lc),
+           "grad_norm": gc.norm().item(), "grad_norm_rel_diff": ((gg - gc).norm() / gc.norm()).item(),
+           "grad_norm_rel_diff_vs_float64": {"cuda": ((gg - g64).norm() / g64.norm()).item(),
+                                             "cpu": ((gc - g64).norm() / g64.norm()).item()},
+           "bn_stat_rel_diff": bn, "param_max_abs_diff": dp.max().item(),
+           "update_max_abs_diff_vs_cpu_amsgrad_on_card_grad": upd,
+           "param_share_over_lr_1pct_not_held": (dp > lr_now / 100).float().mean().item(),
+           "param_share_over_lr_1pct_vs_float64_not_held": share64,
+           "tolerance": {"loss": TRAIN_LOSS_TOL, "grad_norm_rel": TRAIN_GRAD_TOL,
+                         "bn": UNET_BN_TOL, "param_max": lr_now, "update": GEN_UPDATE_TOL}}
+    check(math.isfinite(lg) and rec["loss_abs_diff"] <= TRAIN_LOSS_TOL and rec["grad_norm"] > 0,
+          f"{network} card vs CPU: loss {rec}")
+    check(rec["grad_norm_rel_diff"] <= TRAIN_GRAD_TOL, f"{network} card vs CPU: gradients {rec}")
+    check(bn <= UNET_BN_TOL, f"{network} card vs CPU: BN stats {rec}")
+    check(rec["param_max_abs_diff"] <= lr_now and upd <= GEN_UPDATE_TOL,
+          f"{network} card vs CPU: parameters {rec}")
+    return rec
+
+
+def train_run(torch, kernel_mods, argv, models):
+    """``train.loop`` on ``argv`` into ``models``: (experiment dir, its
+    ``trainres.json``, its printed output, launch counts)."""
+    import json as _json
+
+    from nind_denoise_tpu_torch.train import loop
+
+    (exp, text), launches = counted(torch, kernel_mods, lambda: captured(
+        loop.main, argv + ["--models_dpath", models]))
+    with open(os.path.join(exp, "trainres.json")) as f:
+        return exp, _json.load(f), text, launches
+
+
+def phase_unet_train(torch, card, tmp, kernel_mods, batch=20, cs=220):
+    """``train.loop`` with ``train_conf_unet.yaml`` and ``--weight_MSSSIM 0
+    --weight_MSE 1`` (UNet, batch 20, cs 220, loss_cs 161, fp32) for two
+    epochs of two steps on seeded 256 px crops; a resume for one more
+    epoch with ``--compute_dtype bfloat16``, which warns and trains in
+    fp32; warm step times (ms, crops/s, peak memory, the BN kernels' share
+    of the device time); one step resumed from the run's checkpoint on the
+    card against the CPU at batch 2. Returns the two-epoch run's counts."""
+    t0 = time.time()
+    root = os.path.join(tmp, "unet_train", "SYN_256_220")
+    val = os.path.join(tmp, "unet_train", "val.yaml")
+    write_train_crops(root, val, scenes=2, crops=batch, size=256, seed=3)
+    cfg = os.path.join(ROOT, "nind_denoise_tpu_torch", "configs", "train_conf_unet.yaml")
+    argv = ["--config", cfg, "--train_data", root, "--validation_set_yaml", val,
+            "--test_reserve", "0", "--threads", "1", "--device", DEV,
+            "--weight_MSSSIM", "0", "--weight_MSE", "1", "--batch_size", str(batch),
+            "--cs", str(cs)]
+    exp, res, _, launches = train_run(torch, kernel_mods, argv + ["--epochs", "3"],
+                                      os.path.join(tmp, "unet_train", "models"))
+    epochs = {e: res[str(e)] for e in (0, 1, 2)}
+    check(all(math.isfinite(v) for r in epochs.values() for v in r.values()),
+          f"unet_train: non-finite results {epochs}")
+    check("train_weighted_loss" in epochs[2] and sum(launches.values()) == 0,
+          f"unet_train: {res} launches {launches}")
+    ckpt = highest(exp, "generator")
+    _, res2, text, _ = train_run(torch, kernel_mods, argv + [
+        "--epochs", "4", "--g_model_path", ckpt, "--compute_dtype", "bfloat16"],
+        os.path.join(tmp, "unet_train", "resumed"))
+    check("training UNet in float32" in text and math.isfinite(
+        res2.get("3", {}).get("train_weighted_loss", math.nan)), f"unet_train resume: {res2}")
+    cli_s = time.time() - t0
+    clean, noisy = train_batch(torch, root, batch, cs)
+    weights = {"MSE": 1}
+    times = train_step_times(torch, ckpt, clean, noisy, network="UNet", weights=weights,
+                             loss_cs=161, dtypes=("float32",))
+    cpu = generator_step_vs_cpu(torch, ckpt, "UNet", weights, 3e-4, 0.5, 161, clean[:2],
+                                noisy[:2])
+    emit(card, phase="unet_train", config="train_conf_unet.yaml + --weight_MSSSIM 0 "
+         "--weight_MSE 1", batch=batch, cs=cs, loss_cs=161, epochs=epochs,
+         launches=launches, checkpoint=os.path.basename(ckpt), cli_s=cli_s,
+         bf16_resume={"warned": True, "epoch_3": res2["3"]}, step=times, card_vs_cpu=cpu,
+         phase_s=time.time() - t0)
+    return launches
+
+
+def phase_hul_gen_train(torch, card, tmp, kernel_mods, funit=32, batch=12):
+    """``train.loop --g_network Hulb128Net --cs 128 --loss_cs 120
+    --batch_size 12 --g_funit 32 --weight_MSSSIM 0 --weight_MSE 1`` for
+    one epoch of three steps in fp32 and in bf16 on seeded 144 px crops;
+    warm step times in both; one fp32 step resumed from the fp32 run's
+    checkpoint on the card against the CPU at batch 2; Hulbs128Net's
+    forward at funit 32, card (TF32 off) against the CPU. Returns the fp32
+    run's counts."""
+    import numpy as np
+
+    from nind_denoise_tpu_torch.engine.tile_engine import _tf32
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.tools import fixtures
+
+    t0 = time.time()
+    root = os.path.join(tmp, "hul_gen", "SYN_144_128")
+    val = os.path.join(tmp, "hul_gen", "val.yaml")
+    write_train_crops(root, val, scenes=2, crops=3 * batch // 2, size=144, seed=5)
+    argv = ["--train_data", root, "--validation_set_yaml", val, "--test_reserve", "0",
+            "--threads", "1", "--device", DEV, "--g_network", "Hulb128Net", "--cs", "128",
+            "--loss_cs", "120", "--batch_size", str(batch), "--g_funit", str(funit),
+            "--weight_MSSSIM", "0", "--weight_MSE", "1", "--g_lr", "3e-4", "--epochs", "2"]
+    runs, launches = {}, None
+    for dtype in ("float32", "bfloat16"):
+        exp, res, _, n = train_run(torch, kernel_mods, argv + ["--compute_dtype", dtype],
+                                   os.path.join(tmp, "hul_gen", dtype))
+        check(math.isfinite(res["1"].get("train_weighted_loss", math.nan))
+              and sum(n.values()) == 0, f"hul_gen_train {dtype}: {res} launches {n}")
+        runs[dtype] = {"epoch_1": res["1"], "checkpoint": highest(exp, "generator")}
+        launches = launches or n
+    ckpt = runs["float32"]["checkpoint"]
+    clean, noisy = train_batch(torch, root, batch, 128)
+    weights = {"MSE": 1}
+    times = train_step_times(torch, ckpt, clean, noisy, network="Hulb128Net", weights=weights,
+                             loss_cs=120)
+    cpu = generator_step_vs_cpu(torch, ckpt, "Hulb128Net", weights, 3e-4, 0.5, 120,
+                                clean[:2], noisy[:2])
+    params = fixtures.hul_gen_params("Hulbs128Net", funit, 6)
+    sd = params_io.hul_gen_state_dict_from_jax(params, "Hulbs128Net")
+    x = torch.from_numpy(np.random.default_rng(6).random((2, 3, 128, 128), np.float32))
+    outs = []
+    for dev in (DEV, "cpu"):
+        model = params_io.generator_from_state_dict(sd, "PReLU", "Hulbs128Net").to(dev)
+        with torch.no_grad(), _tf32(False):
+            outs.append(model(x.to(dev)).cpu())
+    fwd_err = (outs[0] - outs[1]).abs().max().item()
+    check(fwd_err <= HUL_FWD_TOL, f"Hulbs128Net forward card vs CPU: {fwd_err}")
+    emit(card, phase="hul_gen_train", network="Hulb128Net", funit=funit, batch=batch, cs=128,
+         loss_cs=120, runs={k: {**v, "checkpoint": os.path.basename(v["checkpoint"])}
+                            for k, v in runs.items()},
+         launches=launches, step=times, card_vs_cpu=cpu,
+         hulbs128net_forward={"shape": list(x.shape), "funit": funit,
+                              "max_abs_err_cuda_vs_cpu": fwd_err, "tolerance": HUL_FWD_TOL},
+         phase_s=time.time() - t0)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2928,6 +3252,9 @@ def main() -> int:
         scenes = os.path.join(tmp, "NIND")
         by_path["dataset_tools"] = phase_dataset_tools(torch, card, tmp, kernel_mods, scenes, HW)
         by_path["eval"] = phase_eval(torch, card, tmp, kernel_mods, scenes, ckpt, HW)
+        by_path["unet_cli"] = phase_unet_cli(torch, card, tmp, kernel_mods, tif)
+        by_path["unet_train"] = phase_unet_train(torch, card, tmp, kernel_mods)
+        by_path["hul_gen_train"] = phase_hul_gen_train(torch, card, tmp, kernel_mods)
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

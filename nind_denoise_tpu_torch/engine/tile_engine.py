@@ -47,6 +47,8 @@ from ..utils.device import resolve_device
 from . import device_stitch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the generators the engine runs (the JAX engine's resolve_apply_fn)
+ENGINE_NETWORKS = ("UtNet", "UNet")
 # the tile I/O dtype of each compute dtype: the int8 modes quantize inside
 # the forward, and the normalization, feather masks and canvas stay bf16
 _IO_DTYPES = {**_DTYPES, "int8": torch.bfloat16, "int8_static": torch.bfloat16}
@@ -370,14 +372,21 @@ def resolve_apply_fn(network: str, model: nn.Module,
                      calib=None) -> nn.Module:
     """The generator forward for an engine: a copy of ``model`` on the
     device in the compute dtype, in eval mode, without gradients; for
-    ``int8`` / ``int8_static`` the quantized forward (``QuantUtNet``),
-    ``int8_static`` calibrated on ``calib`` ((N, s, s, 3) in [0, 1], e.g.
-    ``calib_from_image`` of the input) or, absent one, on the synthetic
-    set ``calib_tiles()``. Only UtNet is ported."""
-    if network != "UtNet":
-        raise NotImplementedError(f"resolve_apply_fn: {network} is not ported")
+    ``int8`` / ``int8_static`` (UtNet only) the quantized forward
+    (``QuantUtNet``), ``int8_static`` calibrated on ``calib`` ((N, s, s,
+    3) in [0, 1], e.g. ``calib_from_image`` of the input) or, absent one,
+    on the synthetic set ``calib_tiles()``. A UNet normalizes with its
+    running stats, in fp32 under a bf16 compute dtype (``cast_convs``).
+    UtNet and UNet are the engine's networks, as in the JAX package."""
+    from ..models import get_network
+
+    get_network(network)  # the rest of the zoo raises, naming ROADMAP item 7
+    if network not in ENGINE_NETWORKS:
+        raise ValueError(f"resolve_apply_fn: unsupported generator {network}")
     if compute_dtype not in _IO_DTYPES:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    if compute_dtype.startswith("int8") and network != "UtNet":
+        raise ValueError(f"compute_dtype={compute_dtype!r} is only supported for UtNet")
     dev = resolve_device(device)
     if compute_dtype.startswith("int8"):
         from ..models.utnet_int8 import QuantUtNet
@@ -387,18 +396,32 @@ def resolve_apply_fn(network: str, model: nn.Module,
         if q.static:
             q.calibrate(calib_tiles() if calib is None else calib)
         return q
-    return copy.deepcopy(model).to(dev, _DTYPES[compute_dtype]).eval() \
-        .requires_grad_(False)
+    m = copy.deepcopy(model).to(dev)
+    m = m.cast_convs(_DTYPES[compute_dtype]) if network == "UNet" \
+        else m.to(_DTYPES[compute_dtype])
+    return m.eval().requires_grad_(False)
 
 
 def _resolve_tiles(network: str, cs: Optional[int], ucs: Optional[int]):
-    """Per-arch tile defaults + size-formula validation -> (cs, ucs, check)."""
-    if network != "UtNet":
-        raise NotImplementedError(f"{network} is not ported")
+    """Per-arch tile defaults + size-formula validation -> (cs, ucs, check);
+    UNet takes any size (check None), as in the JAX package."""
+    from ..models import get_network
+
+    get_network(network)
+    if network not in ENGINE_NETWORKS:
+        raise ValueError(f"the tile engine does not run {network}")
     if cs is None or ucs is None:
         cs, ucs = default_cs_ucs(network)
-    check_cs(cs)
-    return cs, ucs, check_cs
+    check = size_check(network)
+    if check is not None:
+        check(cs)
+    return cs, ucs, check
+
+
+def size_check(network: str):
+    """The architecture's tile-size validator: UtNet's ``check_cs``; None
+    (any size) for UNet."""
+    return check_cs if network == "UtNet" else None
 
 
 def make_engine(network: str, model: nn.Module, cs: Optional[int] = None,

@@ -18,7 +18,8 @@ a freshly denoised uint16 image is scored from the pixels just written
 
 Beyond the JAX flags: ``--device`` (CUDA unless ``cpu``). Not ported, and
 raising ``NotImplementedError``: ``--devices`` > 1 and more than one
-process (ROADMAP queue 1 item 9), networks other than UtNet (item 7).
+process (ROADMAP queue 1 item 9), networks other than UtNet and UNet
+(item 7).
 
     python -m nind_denoise_tpu_torch.eval.denoise_dir --model_path <run dir> \
         --noisy_dir <scenes> --result_dir <results>
@@ -33,7 +34,7 @@ from typing import List
 
 from ..core import imgio
 from ..engine.tile_engine import AdaptiveEngine, make_engine
-from ..models import params_io
+from ..models import get_network, params_io
 from ..pipeline import denoise_image_cli
 from ..train.dataset import get_baseline_fpath
 from ..utils import conf, json_saver, utilities
@@ -75,9 +76,7 @@ def check_ported(args) -> None:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "more than one process is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
-    if args.g_network != "UtNet":
-        raise NotImplementedError(
-            f"--network {args.g_network} is not ported yet (ROADMAP queue 1 item 7)")
+    get_network(args.g_network)  # the rest of the zoo: ROADMAP queue 1 item 7
 
 
 def _out_fpath(save_dir: str, fn: str) -> str:

@@ -24,10 +24,18 @@ The Hul discriminators cross the same way: ``hul_state_dict_from_jax``
 rejects finalpool heads) and ``load_discriminator``; their Adam state
 is ``opt_leaves`` with ``ADAM_MOMENTS``.
 
+UNet crosses with its BatchNorm state (``unet_state_dict_from_jax``,
+``torch_export.export_unet``'s mapping, and its inverse
+``unet_jax_from_state_dict``), and so do the Hul generators
+(``hul_gen_state_dict_from_jax`` / ``hul_gen_jax_from_state_dict``,
+``export_hul_gen`` / ``import_hul_gen``); ``generator_state_dict_from_jax``
+and ``generator_jax_from_state_dict`` pick the mapping by network name.
+
 ``complete_path`` resolves a checkpoint directory to its best-validation
 epoch (``trainres.json``) or its highest epoch, as the JAX package's
-``params_io`` does. ``load_generator`` builds the model on the ``meta``
-device and assigns the checkpoint's tensors to it, so no random init runs.
+``params_io`` does. ``load_generator(path, network, activation)`` builds
+the model on the ``meta`` device and assigns the checkpoint's tensors to
+it, so no random init runs.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
+from .unet import UNet
 from .utnet import UtNet
 
 _META_KEY = "__pytree_meta__"
@@ -321,13 +331,15 @@ def complete_path(path: str, models_dpath: Optional[str] = None,
     raise FileNotFoundError(f"model path not found: {path}")
 
 
-def load_generator(path: str, activation: str = "PReLU",
-                   models_dpath: Optional[str] = None) -> UtNet:
-    """UtNet with the weights of ``path`` (``.pt`` state_dict or ``.npz``
-    JAX params, resolved by ``complete_path``), loaded strictly, on the CPU
-    in float32. The model is built on the ``meta`` device and the
-    checkpoint's tensors are assigned to it: no random init runs, and a
-    missing, extra or misshapen key raises as in an ordinary load."""
+def load_generator(path: str, network: str = "UtNet", activation: str = "PReLU",
+                   models_dpath: Optional[str] = None) -> nn.Module:
+    """The generator ``network`` with the weights of ``path`` (``.pt``
+    state_dict or ``.npz`` JAX params, resolved by ``complete_path``),
+    loaded strictly, on the CPU in float32. The model is built on the
+    ``meta`` device and the checkpoint's tensors are assigned to it: no
+    random init runs, and a missing, extra or misshapen key raises as in an
+    ordinary load. A UNet ``.npz`` must bundle its BatchNorm state
+    (``{"params", "state"}``), as the JAX engine requires."""
     if os.path.splitext(path)[1] not in ("", ".npz", ".pt", ".pth") \
             and not os.path.isdir(path):
         raise ValueError(f"unsupported checkpoint format: {path}")
@@ -335,25 +347,181 @@ def load_generator(path: str, activation: str = "PReLU",
     if path.endswith(".npz"):
         tree = load_npz(path)
         # native checkpoints may bundle {'params': ..., 'state': ...}
+        state = None
         if isinstance(tree, dict) and "params" in tree:
-            tree = tree["params"]
-        sd = state_dict_from_jax(tree)
+            tree, state = tree["params"], tree.get("state")
+        if network == "UNet" and state is None:
+            raise ValueError(f"{path}: a UNet checkpoint needs its BatchNorm "
+                             "state ({'params': ..., 'state': ...})")
+        sd = generator_state_dict_from_jax(network, tree, state)
     elif path.endswith((".pt", ".pth")):
         sd = torch.load(path, map_location="cpu", weights_only=True)
     else:
         raise ValueError(f"unsupported checkpoint format: {path}")
-    return generator_from_state_dict(sd, activation)
+    return generator_from_state_dict(sd, activation, network)
 
 
-def generator_from_state_dict(sd: Dict[str, torch.Tensor],
-                              activation: str = "PReLU") -> UtNet:
-    """UtNet built on the ``meta`` device with ``sd``'s tensors assigned to
-    it (strictly), on the CPU in float32."""
-    sd = {k: v.to("cpu", torch.float32).contiguous() for k, v in sd.items()}
+def generator_from_state_dict(sd: Dict[str, torch.Tensor], activation: str = "PReLU",
+                              network: str = "UtNet") -> nn.Module:
+    """The generator ``network`` built on the ``meta`` device with ``sd``'s
+    tensors assigned to it (strictly), on the CPU, floating tensors in
+    float32."""
+    from . import GENERATORS
+
+    if network not in GENERATORS:
+        from . import get_network
+
+        get_network(network)  # raises, naming where the network is queued
+    sd = {k: v.to("cpu", torch.float32).contiguous() if v.is_floating_point()
+          else v.to("cpu") for k, v in sd.items()}
     with torch.device("meta"):
-        model = UtNet(UtNet.funit_of(sd), activation)
+        if network == "UtNet":
+            model = UtNet(UtNet.funit_of(sd), activation)
+        elif network == "UNet":
+            model = UNet(int(sd["inc.conv.conv.0.weight"].shape[1]),
+                         int(sd["outc.conv.weight"].shape[0]))
+        else:
+            w = sd["enc128to126std.0.weight"]
+            model = GENERATORS[network](int(w.shape[0]) // 2, activation, int(w.shape[1]))
     model.load_state_dict(sd, strict=True, assign=True)
     return model
+
+
+def generator_state_dict_from_jax(network: str, params: Dict,
+                                  state: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """A JAX generator's params (and UNet's BN state) -> the port's
+    state_dict of ``network``. ``state`` None maps the parameters alone."""
+    if network == "UNet":
+        return unet_state_dict_from_jax(params, state)
+    if network in ("Hulb128Net", "Hulbs128Net"):
+        return hul_gen_state_dict_from_jax(params, network)
+    return state_dict_from_jax(params)
+
+
+def generator_jax_from_state_dict(network: str, sd: Dict[str, Any]):
+    """Inverse of ``generator_state_dict_from_jax``: (params, state), the
+    state None for a stateless network or a dict without running stats."""
+    if network == "UNet":
+        return unet_jax_from_state_dict(sd)
+    if network in ("Hulb128Net", "Hulbs128Net"):
+        return hul_gen_jax_from_state_dict(sd, network), None
+    return jax_from_state_dict(sd), None
+
+
+# -- UNet ---------------------------------------------------------------------
+
+def _unet_doubles():
+    """(JAX key, torch prefix) of every UNet double block."""
+    yield "inc", "inc.conv.conv"
+    for i in range(1, 5):
+        yield f"down{i}", f"down{i}.mpconv.1.conv"
+    for i in range(1, 5):
+        yield f"up{i}", f"up{i}.conv.conv"
+
+
+def unet_state_dict_from_jax(params: Dict, state: Optional[Dict]) -> Dict[str, torch.Tensor]:
+    """JAX UNet (params, BN state) -> the port's ``UNet`` state_dict, the
+    mapping of ``torch_export.export_unet``: BN ``scale/bias/mean/var`` ->
+    ``weight/bias/running_mean/running_var`` (``num_batches_tracked`` 0).
+    ``state`` None maps the parameters alone (an optimizer moment)."""
+    sd: Dict[str, np.ndarray] = {}
+    for key, prefix in _unet_doubles():
+        for j in (0, 1):
+            conv, bn = params[key][f"c{j}"], params[key][f"bn{j}"]
+            sd[f"{prefix}.{3 * j}.weight"] = _conv_w(conv["w"])
+            sd[f"{prefix}.{3 * j}.bias"] = _f32(conv["b"])
+            sd[f"{prefix}.{3 * j + 1}.weight"] = _f32(bn["scale"])
+            sd[f"{prefix}.{3 * j + 1}.bias"] = _f32(bn["bias"])
+            if state is not None:
+                st = state[key][f"bn{j}"]
+                sd[f"{prefix}.{3 * j + 1}.running_mean"] = _f32(st["mean"])
+                sd[f"{prefix}.{3 * j + 1}.running_var"] = _f32(st["var"])
+                sd[f"{prefix}.{3 * j + 1}.num_batches_tracked"] = np.zeros((), np.int64)
+    for i in range(1, 5):
+        sd[f"up{i}.up.weight"] = _upconv_w(params[f"up{i}_t"]["w"])
+        sd[f"up{i}.up.bias"] = _f32(params[f"up{i}_t"]["b"])
+    sd["outc.conv.weight"] = _conv_w(params["outc"]["w"])
+    sd["outc.conv.bias"] = _f32(params["outc"]["b"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _arr(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def unet_jax_from_state_dict(sd: Dict[str, Any]):
+    """A UNet state_dict (the port's or the reference's ``.pt``) -> JAX
+    (params, state), as ``torch_import.import_unet``; the state is None
+    where the dict holds no running stats."""
+    def lay(prefix, kind="conv"):
+        return {"w": np.ascontiguousarray(_WMAP_INV[kind](_arr(sd[prefix + ".weight"]))),
+                "b": _f32(_arr(sd[prefix + ".bias"]))}
+
+    params: Dict = {}
+    state: Optional[Dict] = {} if "inc.conv.conv.1.running_mean" in sd else None
+    for key, prefix in _unet_doubles():
+        params[key] = {}
+        if state is not None:
+            state[key] = {}
+        for j in (0, 1):
+            bn = f"{prefix}.{3 * j + 1}"
+            params[key][f"c{j}"] = lay(f"{prefix}.{3 * j}")
+            params[key][f"bn{j}"] = {"scale": _f32(_arr(sd[bn + ".weight"])),
+                                     "bias": _f32(_arr(sd[bn + ".bias"]))}
+            if state is not None:
+                state[key][f"bn{j}"] = {"mean": _f32(_arr(sd[bn + ".running_mean"])),
+                                        "var": _f32(_arr(sd[bn + ".running_var"]))}
+    for i in range(1, 5):
+        params[f"up{i}_t"] = lay(f"up{i}.up", "up")
+    params["outc"] = lay("outc.conv")
+    return params, state
+
+
+# -- the Hul generators -------------------------------------------------------
+
+def hul_gen_state_dict_from_jax(params: Dict, network: str) -> Dict[str, torch.Tensor]:
+    """JAX Hulb128Net / Hulbs128Net params -> the port's state_dict, the
+    mapping of ``torch_export.export_hul_gen``: convs as ``nn.Conv2d``,
+    the transposed convs (plain convs over flipped kernels in JAX) as
+    ``nn.ConvTranspose2d``, the per-layer PReLU ``a`` and the output
+    PReLU ``_final_a`` as ``activation.weight``. The unused ``a`` that
+    JAX's init gives the head's last conv is dropped, as JAX's own
+    ``.pt`` export drops it."""
+    from .hul_gen import CONV_TYPES, VARIANTS, layer_slots
+
+    prelu = VARIANTS[network] == "PReLU"
+    sd: Dict[str, np.ndarray] = {}
+    for bname, li, ltype, idx, act in layer_slots():
+        lay = params[bname][li]
+        sd[f"{bname}.{idx}.weight"] = (_conv_w if ltype in CONV_TYPES else _tconv3_w)(lay["w"])
+        if "b" in lay:
+            sd[f"{bname}.{idx}.bias"] = _f32(lay["b"])
+        if act is not None and prelu:
+            sd[f"{bname}.{act}.weight"] = _f32(lay["a"]).reshape(1)
+    if "_final_a" in params:
+        sd["activation.weight"] = _f32(params["_final_a"]).reshape(1)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def hul_gen_jax_from_state_dict(sd: Dict[str, Any], network: str) -> Dict:
+    """A Hul generator state_dict (the port's or the reference's ``.pt``)
+    -> JAX params: the inverse of ``hul_gen_state_dict_from_jax``, as
+    ``torch_import.import_hul_gen``."""
+    from .hul_gen import _PLAN, CONV_TYPES, VARIANTS, layer_slots
+
+    prelu = VARIANTS[network] == "PReLU"
+    params: Dict = {b: [] for b in _PLAN}
+    for bname, _li, ltype, idx, act in layer_slots():
+        inv = _conv_w_inv if ltype in CONV_TYPES else _tconv3_w_inv
+        lay = {"w": np.ascontiguousarray(inv(_arr(sd[f"{bname}.{idx}.weight"])))}
+        if f"{bname}.{idx}.bias" in sd:
+            lay["b"] = _f32(_arr(sd[f"{bname}.{idx}.bias"]))
+        if act is not None and prelu:
+            lay["a"] = _f32(_arr(sd[f"{bname}.{act}.weight"])).reshape(())
+        params[bname].append(lay)
+    if "activation.weight" in sd:
+        params["_final_a"] = _f32(_arr(sd["activation.weight"])).reshape(())
+    return params
 
 
 # -- the Hul discriminators ---------------------------------------------------

@@ -32,8 +32,10 @@ exif, and develop and stage2 where darktable runs.
 JAX CLI's serial path does. ``--rl-impl auto|xla|pallas`` keeps the JAX
 CLI's choices: ``auto`` picks the route by sigma, psf and dt, ``xla`` the
 separable body, ``pallas`` the fused RL kernel K1, which refuses dt != 1,
-``gmic_fast`` and radii above 32 (``ops/rl_deblur.route_for``). The JAX
-CLI's ``--devices`` (ROADMAP queue 1 item 9) is not a flag here. The model table's download is left out: a missing
+``gmic_fast`` and radii above 32 (``ops/rl_deblur.route_for``).
+``--devices 1`` runs; more devices raise ``NotImplementedError`` (ROADMAP
+queue 1 item 9). A model table entry's ``network`` is UtNet or UNet (the
+engine's networks). The model table's download is left out: a missing
 checkpoint raises ``FileNotFoundError`` naming its path and the table's URL.
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_cli img.tif --tiff-input -o out/
@@ -111,8 +113,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="float32: no TF32 in float32 convs and matmuls")
     p.add_argument("--cs", type=int, help="Override tile size")
     p.add_argument("--ucs", type=int, help="Override useful tile size")
+    p.add_argument("--devices", type=int,
+                   help="Directory mode: dispatch images one-per-device over "
+                        "this many devices (parallel/batch_engine). Default: "
+                        "all visible devices when >1; 1 forces serial. The "
+                        "port runs one device: more is not ported yet "
+                        "(ROADMAP queue 1 item 9)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
+
+
+def check_ported(args) -> None:
+    """Raise on a flag value the port does not run yet."""
+    if args.devices is not None and args.devices > 1:
+        raise NotImplementedError(
+            "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
 
 
 def check_good_input(path: pathlib.Path, extensions) -> bool:
@@ -174,7 +189,7 @@ class Session:
                args.compute_dtype, args.precision, args.device)
         if key not in self.engines:
             with timers.stage("load"):
-                model = params_io.load_generator(mcfg["path"],
+                model = params_io.load_generator(mcfg["path"], network,
                                                  mcfg.get("activation", "PReLU"))
             with timers.stage("denoise"):
                 self.engines[key] = AdaptiveEngine(
@@ -436,6 +451,7 @@ def main(argv=None):
     """Denoise a file (returns its output path, or None if skipped) or a
     directory (returns the list, in sorted file order)."""
     args = build_parser().parse_args(argv)
+    check_ported(args)
     input_path = pathlib.Path(args.raw_image)
     session = Session()
     try:

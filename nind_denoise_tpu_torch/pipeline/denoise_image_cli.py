@@ -18,7 +18,8 @@ input in ``--whole_image`` mode.
 
 Not ported, and raising ``NotImplementedError`` rather than being ignored:
 more than one device (``--devices`` > 1, ROADMAP queue 1 item 9),
-``--trace_dir`` (item 10) and networks other than UtNet (item 7).
+``--trace_dir`` (item 10) and networks outside the port's model zoo
+(item 7). The engine runs UtNet and UNet, as the JAX one does.
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_image_cli \
         -i noisy.tif -o denoised.tiff --network UtNet --model_path ckpt.npz
@@ -36,9 +37,8 @@ import numpy as np
 
 from ..core import imgio
 from ..core.tiles import TilingError, adapt_cs_ucs, default_cs_ucs
-from ..engine.tile_engine import make_engine
-from ..models import params_io
-from ..models.utnet import check_cs
+from ..engine.tile_engine import make_engine, size_check
+from ..models import get_network, params_io
 from ..ops.qconv import calib_from_image
 from ..utils import conf
 from ..utils.log import StageTimers
@@ -129,9 +129,7 @@ def check_ported(args) -> None:
             "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
     if args.trace_dir:
         raise NotImplementedError("--trace_dir is not ported yet (ROADMAP queue 1 item 10)")
-    if args.g_network != "UtNet":
-        raise NotImplementedError(
-            f"--network {args.g_network} is not ported yet (ROADMAP queue 1 item 7)")
+    get_network(args.g_network)  # the rest of the zoo: ROADMAP queue 1 item 7
 
 
 def load_generator_model(args):
@@ -141,7 +139,7 @@ def load_generator_model(args):
         act = args.model_path.split("activation")[-1].split("_")[1]
         kwargs["activation"] = act
         print(f"set model parameters to activation={act} based on model_path")
-    return params_io.load_generator(args.model_path,
+    return params_io.load_generator(args.model_path, args.g_network,
                                     kwargs.get("activation", "PReLU"),
                                     models_dpath=args.models_dpath)
 
@@ -198,7 +196,7 @@ def run(args, timers: Optional[StageTimers] = None) -> str:
                      if args.compute_dtype == "int8_static" else None)
             try:
                 cs, ucs = adapt_cs_ucs(raw.shape[0], raw.shape[1], args.cs, args.ucs,
-                                       args.overlap, check_cs)
+                                       args.overlap, size_check(args.g_network))
                 if (cs, ucs) != (args.cs, args.ucs):
                     print(f"Image {raw.shape[1]}x{raw.shape[0]} too small for "
                           f"cs={args.cs}/ucs={args.ucs}; using cs={cs}, ucs={ucs}")

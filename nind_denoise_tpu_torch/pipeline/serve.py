@@ -77,8 +77,9 @@ def _check_psf(rl: bool, psf: str) -> None:
 class DenoiseService:
     """Warm engine + one dispatcher thread; thread-safe submit().
 
-    ``parallel``: 'auto' and 'single' run on one device; 'shard' and
-    'images' (multi-GPU) are not ported yet."""
+    ``network``: UtNet or UNet. ``parallel``: 'auto' and 'single' run on
+    one device; 'shard' and 'images' (multi-GPU) are not ported yet, nor
+    is ``devices`` > 1."""
 
     # max requests per coalesced group: bounds the stacked band's device
     # memory and the latency a request adds to those coalesced behind it
@@ -89,7 +90,11 @@ class DenoiseService:
     def __init__(self, network: str, model_path: str, cs=None, ucs=None,
                  activation: str = "PReLU", batch_size: int = 8,
                  compute_dtype: str = "bfloat16", device=None,
-                 max_pending: int = 8, parallel: str = "auto"):
+                 max_pending: int = 8, parallel: str = "auto", devices=None):
+        if devices is not None and devices > 1:
+            raise NotImplementedError(
+                f"devices={devices} (multi-GPU) is not ported yet "
+                f"(ROADMAP queue 1 item 9)")
         if parallel in ("shard", "images"):
             raise NotImplementedError(
                 f"parallel={parallel!r} (multi-GPU) is not ported yet "
@@ -115,7 +120,7 @@ class DenoiseService:
                                   "post": 0.0, "encode": 0.0}}
         self._stats_lock = threading.Lock()
         self._latencies = collections.deque(maxlen=self.LATENCY_WINDOW)
-        model = params_io.load_generator(model_path, activation)
+        model = params_io.load_generator(model_path, network, activation)
         self._adaptive = self._build_engine(model, cs, ucs)
         self.cs, self.ucs = self._adaptive.cs, self._adaptive.ucs
         # bounded queue = backpressure: each queued job holds a decoded
@@ -321,7 +326,7 @@ class DenoiseService:
         thread, build the new engine and swap it in on the dispatcher thread,
         between requests. Requests queued before the reload finish on the
         old weights, later ones run the new; none is dropped."""
-        model = params_io.load_generator(model_path, self._activation)
+        model = params_io.load_generator(model_path, self._network, self._activation)
 
         def swap():
             # a failed build raises before the assignment: the service
@@ -497,6 +502,8 @@ def main(argv=None):
                     choices=["bfloat16", "float32", "int8", "int8_static"],
                     help="int8/int8_static (UtNet only): the quantized forward; "
                          "int8_static recalibrates on each request")
+    ap.add_argument("--devices", type=int,
+                    help="1 (one GPU); more is not ported yet (ROADMAP queue 1 item 9)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--parallel", default="auto",
                     choices=["auto", "shard", "images", "single"],
@@ -515,7 +522,8 @@ def main(argv=None):
     svc = DenoiseService(args.network, args.model_path, cs=args.cs, ucs=args.ucs,
                          activation=args.activation, batch_size=args.batch_size,
                          compute_dtype=args.compute_dtype, device=args.device,
-                         max_pending=args.max_pending, parallel=args.parallel)
+                         max_pending=args.max_pending, parallel=args.parallel,
+                         devices=args.devices)
     for spec in args.prewarm:
         shape, _, dt = spec.partition(":")
         h, _, w = shape.lower().partition("x")

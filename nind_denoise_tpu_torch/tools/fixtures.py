@@ -3,7 +3,10 @@ tests and chip_smoke.py.
 
 ``write_jax_checkpoint`` writes a UtNet of any width in the JAX package's
 ``.npz`` format from a seed, with numpy alone, and
-``write_torch_checkpoint`` the same weights as a torch state_dict.
+``write_torch_checkpoint`` the same weights as a torch state_dict;
+``write_unet_checkpoint`` a UNet with its BatchNorm state and
+``write_hul_gen_checkpoint`` a Hul generator, likewise (``unet_tree`` and
+``hul_gen_params`` give their trees).
 ``plugin_command`` is the darktable plugin's command line, built from the
 template in its Lua source, and ``SIDECAR`` a darktable XMP sidecar with a
 history of first-stage, second-stage and unknown operations.
@@ -178,6 +181,93 @@ def write_torch_checkpoint(path: str, funit: int, seed: int) -> None:
     finally:
         os.unlink(tmp)
     torch.save(sd, path)
+
+
+def unet_tree(seed: int, n_channels: int = 3, n_classes: int = 3):
+    """A seeded UNet (params, BN state) in the JAX package's layout, numpy
+    only: He-uniform (+-sqrt(6/fan_in)) conv kernels, so that activations
+    keep their scale through the 18 ReLU layers, uniform(+-1/sqrt(fan_in))
+    biases, BN scale in [0.5, 1.5), bias in [-0.1, 0.1), running mean in
+    [-0.1, 0.1) and running var in [0.5, 1.5)."""
+    from ..models.unet import CHANNELS
+
+    rng = np.random.default_rng(seed)
+
+    def conv(k, cin, cout):
+        fan_in = cin * k * k
+        w = rng.uniform(-1, 1, (k, k, cin, cout)) * math.sqrt(6 / fan_in)
+        b = rng.uniform(-1, 1, (cout,)) / math.sqrt(fan_in)
+        return {"w": w.astype(np.float32), "b": b.astype(np.float32)}
+
+    def double(cin, cout):
+        p, st = {}, {}
+        for j, ci in enumerate((cin, cout)):
+            p[f"c{j}"] = conv(3, ci, cout)
+            p[f"bn{j}"] = {"scale": rng.uniform(0.5, 1.5, cout).astype(np.float32),
+                           "bias": rng.uniform(-0.1, 0.1, cout).astype(np.float32)}
+            st[f"bn{j}"] = {"mean": rng.uniform(-0.1, 0.1, cout).astype(np.float32),
+                            "var": rng.uniform(0.5, 1.5, cout).astype(np.float32)}
+        return p, st
+
+    ch = CHANNELS
+    params, state = {}, {}
+    params["inc"], state["inc"] = double(n_channels, ch[0])
+    for i in range(4):
+        params[f"down{i + 1}"], state[f"down{i + 1}"] = double(ch[i], ch[i + 1])
+    for i, (cin, cout) in enumerate(zip((1024, 512, 256, 128), (256, 128, 64, 64)), 1):
+        half = cin // 2
+        fan_in = half * 4
+        params[f"up{i}_t"] = {
+            "w": (rng.uniform(-1, 1, (half, 4 * half)) * math.sqrt(6 / fan_in)).astype(np.float32),
+            "b": (rng.uniform(-1, 1, (half,)) / math.sqrt(fan_in)).astype(np.float32)}
+        params[f"up{i}"], state[f"up{i}"] = double(cin, cout)
+    params["outc"] = conv(1, ch[0], n_classes)
+    return params, state
+
+
+def write_unet_checkpoint(path: str, seed: int) -> None:
+    """``unet_tree(seed)`` as the JAX package's ``{"params", "state"}``
+    ``.npz``."""
+    from ..models.params_io import save
+
+    params, state = unet_tree(seed)
+    save({"params": params, "state": state}, path)
+
+
+def hul_gen_params(network: str, funit: int, seed: int, activation: str = "PReLU"):
+    """Seeded Hulb128Net / Hulbs128Net params in the JAX package's layout,
+    numpy only, drawn as JAX's init draws them (uniform(+-1/sqrt(fan_in)),
+    PReLU ``a`` 0.01, ``_final_a`` for a PReLU output), without the unused
+    ``a`` of the head's last conv."""
+    from ..models.hul_gen import _PLAN, HEAD, VARIANTS
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for bname, specs in _PLAN.items():
+        layers = []
+        for li, (cin_m, cout_m, ltype, bias) in enumerate(specs):
+            cin = 3 if cin_m is None else cin_m * funit
+            cout = max(1, cout_m * funit) if cout_m else 3
+            k = 1 if ltype == "t1" else 3
+            bound = 1.0 / math.sqrt(cin * k * k)
+            lay = {"w": rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32)}
+            if bias:
+                lay["b"] = rng.uniform(-bound, bound, (cout,)).astype(np.float32)
+            if VARIANTS[network] == "PReLU" and not (bname == HEAD and li == len(specs) - 1):
+                lay["a"] = np.asarray(0.01, np.float32)
+            layers.append(lay)
+        params[bname] = layers
+    if activation == "PReLU":
+        params["_final_a"] = np.asarray(0.01, np.float32)
+    return params
+
+
+def write_hul_gen_checkpoint(path: str, network: str, funit: int, seed: int,
+                             activation: str = "PReLU") -> None:
+    """``hul_gen_params(...)`` as a JAX package ``.npz``."""
+    from ..models.params_io import save
+
+    save(hul_gen_params(network, funit, seed, activation), path)
 
 
 PLUGIN_LUA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(

@@ -1,5 +1,6 @@
-"""nn_train on one GPU — train a UtNet denoising generator, alone or as a
-cGAN against one or two Hul discriminators.
+"""nn_train on one GPU — train a denoising generator (UtNet, UNet,
+Hulb128Net or Hulbs128Net), alone or as a cGAN against one or two Hul
+discriminators.
 
 The counterpart of ``nind_denoise_tpu/train/loop.py`` (the reference's
 nn_train.py:118-448): layered YAML config
@@ -25,9 +26,18 @@ pairs on the device and augments them there (``train/device_cache.py``).
 Checkpoints are the JAX trainer's ``.npz`` files (params, optimizer
 leaves, epoch; discriminators with their BN state and plateau scheduler;
 ``models/params_io``): either trainer resumes from the other's with
-``--g_model_path`` / ``--d_model_path`` / ``--d2_model_path``. Not ported
-yet, and refused: networks other than UtNet and the Hul discriminators
-(ROADMAP item 7) and multi-host runs (item 9).
+``--g_model_path`` / ``--d_model_path`` / ``--d2_model_path``. UNet's
+checkpoints carry its BatchNorm state as JAX's do. Not ported yet, and
+refused: networks outside the port's model zoo (ROADMAP item 7) and
+multi-host runs (item 9).
+
+UNet trains with BatchNorm in train mode (batch statistics, running stats
+updated; microbatch by microbatch under ``--grad_accum``), validates in
+eval mode (running stats), and ``GeneratorWrapper.infer`` (the validation
+dumps, the whole-image test and the discriminators' fake forward)
+normalizes by the batch without touching the running stats, as the JAX
+trainer's train-mode ``infer`` does. ``--compute_dtype bfloat16`` with
+UNet warns and trains in float32, as in JAX.
 
     python -m nind_denoise_tpu_torch.train.loop \\
         --config nind_denoise_tpu_torch/configs/train_conf_utnet_std.yaml \\
@@ -39,6 +49,7 @@ yet, and refused: networks other than UtNet and the Hul discriminators
 from __future__ import annotations
 
 import collections
+import contextlib
 import datetime
 import os
 import random
@@ -55,8 +66,7 @@ import torch
 import yaml
 
 from ..engine.tile_engine import _tf32
-from ..models import HUL_DISCS, params_io
-from ..models.utnet import UtNet
+from ..models import GENERATORS, HUL_DISCS, get_network, params_io
 from ..utils import conf, json_saver
 from ..utils.device import resolve_device
 from ..utils.log import Printer
@@ -190,10 +200,12 @@ def check_ported(args) -> None:
                 f"{flag} {network}: the port's discriminators are the Hul "
                 f"family {sorted(HUL_DISCS)}; the rest of the model zoo is "
                 f"ROADMAP item 7")
-    if args.g_network != "UtNet":
-        raise NotImplementedError(
-            f"--g_network {args.g_network}: the port trains UtNet only; the "
-            f"rest of the model zoo is ROADMAP item 7")
+    if args.g_network not in GENERATORS:
+        get_network(args.g_network)  # the rest of the zoo: ROADMAP item 7
+        raise SystemExit(
+            f"--g_network {args.g_network}: the trainer supports "
+            f"{', '.join(GENERATORS)} (the reference's trainable generators); "
+            f"{args.g_network} is a discriminator")
     if args.coordinator or args.num_processes or args.process_id is not None:
         raise NotImplementedError(
             "--coordinator/--num_processes/--process_id: multi-host training "
@@ -321,20 +333,31 @@ class AsyncCheckpointer:
             raise RuntimeError("async checkpoint write failed") from e
 
 
-def init_model(funit: int, activation: str, seed: int) -> UtNet:
-    """UtNet with torch's default init, drawn on the CPU from a generator
-    seeded with ``seed`` (the same weights whatever the device)."""
+def init_model(funit: int, activation: str, seed: int, network: str = "UtNet"):
+    """The generator ``network`` with torch's default init, drawn on the
+    CPU from a generator seeded with ``seed`` (the same weights whatever
+    the device). UNet takes neither ``funit`` nor ``activation``."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return UtNet(funit, activation)
+        if network == "UNet":
+            return GENERATORS[network]()
+        return GENERATORS[network](funit, activation)
+
+
+def _moment_maps(network: str):
+    """(params tree -> state_dict, state_dict -> params tree) for
+    ``network``'s optimizer moments, which are laid out as its parameters."""
+    return (lambda sd: params_io.generator_jax_from_state_dict(network, sd)[0],
+            lambda tree: params_io.generator_state_dict_from_jax(network, tree))
 
 
 class GeneratorWrapper:
-    """A UtNet, its optimizer and its steps' forward (reference Generator,
-    nn_common.py:163-272)."""
+    """A generator, its optimizer and its steps' forward (reference
+    Generator, nn_common.py:163-272)."""
 
     def __init__(self, args, weights, apply_fn, printer, device):
         self.apply_fn = apply_fn
+        self.network = args.g_network
         self.weights = steps.normalize_weights(weights)
         self.device = device
         opt_leaves = params = None
@@ -347,26 +370,24 @@ class GeneratorWrapper:
                 params = tree["params"] if "params" in tree else tree
                 opt_leaves = tree.get("opt")
                 self.resume_epoch = tree.get("epoch")
-                model = params_io.generator_from_state_dict(
-                    params_io.state_dict_from_jax(params), args.g_activation)
-            else:
-                model = params_io.load_generator(fpath, args.g_activation)
+            model = params_io.load_generator(fpath, self.network, args.g_activation)
         else:
-            model = init_model(args.g_funit, args.g_activation, args.seed)
+            model = init_model(args.g_funit, args.g_activation, args.seed, self.network)
         model = model.to(device)
         opt = steps.make_optimizer(model, args.g_lr, args.beta1)
         if opt_leaves is not None:
-            self.restore_opt(opt, model, opt_leaves, params)
+            self.restore_opt(opt, model, opt_leaves, params, self.network)
             printer.print(f"Restored optimizer state (resume from epoch "
                           f"{self.resume_epoch})")
         self.state = steps.TrainState(model, opt)
         self.loss = {"weighted": 1.0}
 
     @staticmethod
-    def restore_opt(opt, model, leaves, params) -> None:
+    def restore_opt(opt, model, leaves, params, network: str = "UtNet") -> None:
         """Load a checkpoint's optimizer ``leaves`` (its params tree
         ``params``) into ``opt``, the optimizer of ``model``."""
-        count, hyper, inner, moments = params_io.opt_from_leaves(leaves, params)
+        count, hyper, inner, moments = params_io.opt_from_leaves(
+            leaves, params, from_jax=_moment_maps(network)[1])
         opt.set_hyper(**hyper)
         opt.count, opt.inner_count = count, inner
         names = dict(model.named_parameters())
@@ -376,9 +397,13 @@ class GeneratorWrapper:
 
     @torch.no_grad()
     def infer(self, x: torch.Tensor) -> torch.Tensor:
-        """The forward at the steps' precision (no TF32)."""
-        with _tf32(False):
-            return self.apply_fn(self.state.model, x)
+        """The forward at the steps' precision (no TF32). A UNet normalizes
+        by the batch's statistics and keeps its running stats (the JAX
+        trainer's train-mode ``infer``, which drops the new state)."""
+        model = self.state.model
+        frozen = getattr(model, "frozen_stats", contextlib.nullcontext)
+        with _tf32(False), frozen():
+            return self.apply_fn(model, x)
 
     def get_loss(self, pretty_printed=False, component="weighted"):
         if pretty_printed:
@@ -399,10 +424,13 @@ class GeneratorWrapper:
         count, inner, hyper = opt.count, opt.inner_count, opt.hyper
         fpath = os.path.join(model_dir, f"{name}_{epoch}.npz")
 
+        network = self.network
+
         def write(snap):
-            tree = {"params": params_io.jax_from_state_dict(snap["params"]),
-                    "state": None,
-                    "opt": params_io.opt_leaves(count, hyper, inner, snap["moments"]),
+            params, state = params_io.generator_jax_from_state_dict(network, snap["params"])
+            tree = {"params": params, "state": state,
+                    "opt": params_io.opt_leaves(count, hyper, inner, snap["moments"],
+                                                to_jax=_moment_maps(network)[0]),
                     "epoch": epoch}
             params_io.save(tree, fpath)
 
@@ -559,7 +587,13 @@ def main(argv=None):
             device_cache.start_refresh()
 
     # ---- models + steps ----
-    apply_fn = steps.bf16_apply if args.compute_dtype == "bfloat16" else steps.plain_apply
+    apply_fn = steps.plain_apply
+    if args.compute_dtype == "bfloat16":
+        if args.g_network == "UNet":
+            p.print("Warning: --compute_dtype bfloat16 is unsupported for "
+                    "stateful (BatchNorm) nets; training UNet in float32.")
+        else:
+            apply_fn = steps.bf16_apply
     gen = GeneratorWrapper(args, weights, apply_fn, p, device)
     if gen.resume_epoch is not None and args.start_epoch == 1:
         args.start_epoch = int(gen.resume_epoch) + 1

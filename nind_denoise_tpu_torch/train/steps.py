@@ -22,6 +22,7 @@ device tensors and never reads the device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
@@ -130,14 +131,22 @@ def make_generator_train_step(apply_fn: Callable, weights: Dict[str, float],
 
     ``grad_accum=N`` (N must divide the batch) runs N contiguous
     microbatches, sums their gradients, scales the sum by 1/N and applies
-    one update: for UtNet the full-batch step up to fp32 reassociation."""
+    one update: for UtNet the full-batch step up to fp32 reassociation.
+    A BatchNorm net (UNet, in train mode) normalizes each microbatch by
+    its own statistics and updates its running stats microbatch by
+    microbatch, as the JAX step threads its state through the scan."""
     weights = normalize_weights(weights)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def fwd(model, x):
         if remat:
-            return checkpoint(apply_fn, model, x, use_reentrant=False)
+            # a BatchNorm net recomputes with its running stats frozen, or
+            # the recomputation would update them a second time
+            frozen = getattr(model, "frozen_stats", None)
+            kw = {} if frozen is None else {
+                "context_fn": lambda: (contextlib.nullcontext(), frozen())}
+            return checkpoint(apply_fn, model, x, use_reentrant=False, **kw)
         return apply_fn(model, x)
 
     def loss_and_grad(model, clean, noisy):
@@ -186,17 +195,24 @@ def make_generator_train_step(apply_fn: Callable, weights: Dict[str, float],
 def make_generator_eval_step(apply_fn: Callable, weights: Dict[str, float],
                              loss_cs: int, compute_ssim_anyway: bool = False):
     """Validation step -> weighted loss + components (validate_generator
-    parity, nn_train.py:51-71). No autograd, so UtNet's level 1 takes the
-    fused enc1 kernel on the card where its gate allows."""
+    parity, nn_train.py:51-71), with the model in eval mode (a UNet
+    normalizes with its running stats) and back in its mode after. No
+    autograd, so UtNet's level 1 takes the fused enc1 kernel on the card
+    where its gate allows."""
     weights = normalize_weights(weights)
 
     @torch.no_grad()
     def step(model: nn.Module, clean: torch.Tensor, noisy: torch.Tensor):
-        with _tf32(False):
-            gen = torch.clamp(apply_fn(model, noisy), 0.0, 1.0)
-            total, metrics = _quality_losses(center_crop(gen, loss_cs),
-                                             center_crop(clean, loss_cs),
-                                             weights, compute_ssim_anyway)
+        was_training = model.training
+        model.eval()
+        try:
+            with _tf32(False):
+                gen = torch.clamp(apply_fn(model, noisy), 0.0, 1.0)
+                total, metrics = _quality_losses(center_crop(gen, loss_cs),
+                                                 center_crop(clean, loss_cs),
+                                                 weights, compute_ssim_anyway)
+        finally:
+            model.train(was_training)
         metrics["weighted"] = total
         return metrics
 

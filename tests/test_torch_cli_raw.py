@@ -166,7 +166,8 @@ def test_raw_without_darktable_raises(tmp_path, checkpoint):
 @pytest.mark.parametrize("cli,argv,item", [
     ("denoise_image", ["--devices", "2"], "item 9"),
     ("denoise_image", ["--trace_dir", "trace"], "item 10"),
-    ("denoise_image", ["--network", "UNet"], "item 7"),
+    ("denoise_image", ["--network", "DnCNN"], "item 7"),
+    ("denoise", ["--devices", "2"], "item 9"),
 ])
 def test_flags_not_ported_raise(tmp_path, checkpoint, cli, argv, item):
     tif = _tiff(tmp_path / "img.tif")
@@ -212,3 +213,64 @@ def test_directory_loads_once_and_matches_single_runs(tmp_path, monkeypatch, che
     assert len(loads) == 5
     for got, ref in zip(batch, seen[4:]):
         np.testing.assert_array_equal(got, ref)
+
+
+def test_devices_1_runs(tmp_path, checkpoint):
+    tif = _tiff(tmp_path / "img.tif")
+    out = port_cli.main([str(tif), "--tiff-input", "--model_path", checkpoint, "-o",
+                         str(tmp_path), "--device", "cpu", "--devices", "1"] + COMMON)
+    assert out.is_file()
+
+
+# -- UNet through the front ends ----------------------------------------------
+
+@pytest.fixture(scope="module")
+def unet_checkpoint(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("unet") / "unet_generator_1.npz")
+    fixtures.write_unet_checkpoint(path, seed=5)
+    return path
+
+
+@pytest.mark.parametrize("autodetect", [False, True])
+def test_unet_image_cli_matches_jax(tmp_path, monkeypatch, unet_checkpoint, autodetect):
+    """``denoise_image --network UNet`` (tiled, cs 104 / ucs 88) and the
+    network autodetected from a path holding "unet" (UNet's default 440 /
+    320 tiling, which this image is below: one padded forward): the 16-bit
+    outputs within 1 LSB of JAX's."""
+    monkeypatch.setattr(jax_image_cli, "_resolve_devices", lambda args: 1)
+    tif = _tiff(tmp_path / "img.tif", seed=3)
+    outs = []
+    for side, cli in (("jax", jax_image_cli), ("port", port_image_cli)):
+        out = tmp_path / f"{side}.tif"
+        argv = ["-i", str(tif), "-o", str(out), "--model_path", unet_checkpoint,
+                "--compute_dtype", "float32", "-b", "2"]
+        argv += [] if autodetect else ["--network", "UNet", "--cs", "104", "--ucs", "88"]
+        cli.main(argv + (["--device", "cpu"] if side == "port" else []))
+        outs.append(cv2.imread(str(out), cv2.IMREAD_UNCHANGED))
+    ref, got = outs
+    assert got.shape == ref.shape == (H, W, 3) and got.dtype == np.uint16
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_unet_model_entry_matches_jax(tmp_path, monkeypatch, unet_checkpoint):
+    """``denoise`` with a model table entry whose network is UNet, in memory
+    (``--tiff-input``, no sidecar) with RL on the device and ``--devices
+    1``: the pre-encode uint8 within 1 LSB of the JAX CLI's."""
+    seen = _capture(monkeypatch)
+    for mod in (jax_cli, port_cli):
+        read = mod.xmp.read_config
+
+        def with_unet(*a, _read=read, **kw):
+            cfg = _read(*a, **kw)
+            cfg["models"]["unet"] = {"path": unet_checkpoint, "network": "UNet"}
+            return cfg
+
+        monkeypatch.setattr(mod.xmp, "read_config", with_unet)
+    tif = _tiff(tmp_path / "img.tif", seed=6)
+    for side, cli in (("jax", jax_cli), ("port", port_cli)):
+        (tmp_path / side).mkdir()
+        cli.main([str(tif), "--tiff-input", "--model", "unet", "-o", str(tmp_path / side),
+                  "--devices", "1"] + COMMON + (["--device", "cpu"] if side == "port" else []))
+    (ref,), (got,) = seen["jax"], seen["port"]
+    assert got.shape == ref.shape == (H, W, 3)
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1

@@ -96,8 +96,11 @@ def test_max_subpixels_guard(engines):
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError):
-        tte.resolve_apply_fn("UNet", UtNet(4), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tte.resolve_apply_fn("DnCNN", UtNet(4), device="cpu")
+    # a generator of the port's zoo that the engine does not run, as in JAX
+    with pytest.raises(ValueError, match="unsupported generator"):
+        tte.resolve_apply_fn("Hulb128Net", UtNet(4), device="cpu")
 
 
 def test_resolve_apply_fn_int8_modes():

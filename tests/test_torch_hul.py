@@ -170,6 +170,7 @@ def test_frozen_forward_takes_batch_statistics_in_eval_mode_too(net, cin, jax_ne
 def test_get_network_names_item_7_for_the_rest_of_the_zoo():
     assert get_network("Hulf112Disc") is HulDisc
     assert get_network("UtNet").__name__ == "UtNet"
-    for name in ("NLayerDiscriminator", "PixelDiscriminator", "UNet"):
+    assert get_network("UNet").__name__ == "UNet"
+    for name in ("NLayerDiscriminator", "PixelDiscriminator", "DnCNN"):
         with pytest.raises(NotImplementedError, match="item 7"):
             get_network(name)

@@ -41,7 +41,7 @@ def setup(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("ckpt") / "generator_1.npz")
     fixtures.write_jax_checkpoint(path, 8, seed=3)
     jp = jax.tree_util.tree_map(jnp.asarray, params_io.load_npz(path))
-    model = params_io.load_generator(path, "PReLU")
+    model = params_io.load_generator(path, "UtNet", "PReLU")
     derived = jax.jit(JaxUtNet.precompute_int8)(jp)
     d_static = JaxUtNet.calibrate_int8(jp, derived, JQ.calib_tiles())
     x = np.random.default_rng(0).random((2, 136, 136, 3), dtype=np.float32)

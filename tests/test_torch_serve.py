@@ -434,3 +434,48 @@ def test_main_serves_and_drains_on_sigterm(ckpts):
         if p.poll() is None:
             p.kill()
             p.communicate()
+
+
+def test_unet_service_matches_jax_service(tmp_path):
+    """``DenoiseService("UNet", ...)`` (fp32, one RL request) within 1 LSB
+    of the JAX service on the same UNet checkpoint."""
+    from nind_denoise_tpu_torch.tools import fixtures
+
+    ck = str(tmp_path / "generator_1.npz")
+    fixtures.write_unet_checkpoint(ck, seed=2)
+    data = _png(_img(104, 120, 4))
+    jsvc = jax_serve.DenoiseService("UNet", ck, cs=104, ucs=88,
+                                    compute_dtype="float32", devices=1)
+    try:
+        ref = _decode(jsvc.denoise_bytes(data, output="png", iterations=3))
+    finally:
+        jsvc.close()
+    svc = serve_mod.DenoiseService("UNet", ck, devices=1, **KW)
+    try:
+        got = _decode(svc.denoise_bytes(data, output="png", iterations=3))
+    finally:
+        svc.close()
+    assert got.shape == ref.shape == (104, 120, 3) and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_main_devices_1_runs_and_2_raises(ckpts, monkeypatch):
+    class Served:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(serve_mod, "serve", lambda svc, host, port: Served())
+    argv = ["--model_path", ckpts[0], "--cs", "104", "--ucs", "88",
+            "--compute_dtype", "float32", "--device", "cpu"]
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        serve_mod.main(argv + ["--devices", "1"])
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        serve_mod.main(argv + ["--devices", "2"])

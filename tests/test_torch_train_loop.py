@@ -221,7 +221,7 @@ def test_test_reserve_list_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (["--weight_D1", "0.5", "--d_lr", "1e-4", "--d_network", "NLayerDiscriminator"], "item 7"),
     (["--weight_D2", "1", "--d2_lr", "1e-4", "--d2_network", "PixelDiscriminator"], "item 7"),
-    (["--g_network", "UNet"], "item 7"),
+    (["--g_network", "DnCNN"], "item 7"),
     (["--coordinator", "localhost:1234"], "item 9"),
     (["--num_processes", "2"], "item 9"), (["--process_id", "0"], "item 9"),
 ])
