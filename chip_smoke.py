@@ -155,6 +155,26 @@ limit as nvidia-smi reports them):
    --batch_size 12 --g_funit 32`` with MSE, one epoch of three steps in fp32
    and in bf16, warm step times, one step card against CPU, and
    Hulbs128Net's forward card against CPU.
+24. zoo: DnCNN (22, 64), RedCNN (128, depth 30), the ResnetGenerator (ngf
+   64, 9 blocks, BatchNorm), PatchGAN (ndf 64, 3 layers), the pixel critic
+   (ndf 64) and MultiscaleDiscriminator (num_D 3) at full width on seeded
+   weights with calibrated BatchNorm stats: the card's eval forward at a
+   batch of 8 (256 px, RedCNN 128; ms, FLOP count, bound), held with the
+   CPU's fp32 forward to a float64 CPU forward (ZOO_TOL of its largest
+   magnitude) on its first image (DnCNN: the interior of a 96 px crop),
+   and, for the BatchNorm nets, a train-mode forward of 2 images cut to
+   128 px on each device, outputs and running stats, held likewise.
+25. zoo_gan: the gan phase's config with PatchGAN as D1 and the pixel
+   critic as D2 for two epochs: finite losses, both checkpoints at 6
+   channels and ndf 64, K2 launched once per learn of either critic and
+   once per validation pair and validation, a resume of all three networks
+   carrying each Adam's count and scheduler, a PatchGAN both-learn batch's
+   warm times against its FLOP bound, and one PatchGAN discriminator step
+   (and a generator step with its D1 term) on the card against the CPU, as
+   the gan phase holds its own.
+26. trace: ``denoise_image_cli --trace_dir`` on the 6 MP TIFF in bf16: a
+   Chrome trace that names K2's kernel once per launch, and an output
+   bit-equal to the same run without the trace.
 
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
@@ -167,6 +187,7 @@ to 0 just before each run.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -2082,15 +2103,38 @@ def highest(dpath, keyword):
     return os.path.join(dpath, f"{keyword}_{max(eps)}.npz")
 
 
-def disc_wrapper(ckpt, d_funit, device):
+def disc_wrapper(ckpt, d_funit, device, network="Hul112Disc"):
     """The run's discriminator resumed from ``ckpt`` as the trainer does."""
     import types
 
     from nind_denoise_tpu_torch.train import gan
 
     return gan.DiscriminatorWrapper(types.SimpleNamespace(beta1=0.75, models_dpath=None),
-                                    "Hul112Disc", d_funit, 1e-4, True, seed=1,
+                                    network, d_funit, 1e-4, True, seed=1,
                                     model_path=ckpt, device=device)
+
+
+@contextlib.contextmanager
+def cached_npz():
+    """Within: ``params_io.load_npz`` reads each checkpoint file once (the
+    step checks resume the same files tens of times; the generator's, with
+    its optimizer moments, is ~500 MB at funit 64). The trees are only
+    read."""
+    from nind_denoise_tpu_torch.models import params_io
+
+    keep, seen = params_io.load_npz, {}
+
+    def load(fpath):
+        key = (os.path.abspath(fpath), os.path.getmtime(fpath))
+        if key not in seen:
+            seen[key] = keep(fpath)
+        return seen[key]
+
+    params_io.load_npz = load
+    try:
+        yield
+    finally:
+        params_io.load_npz = keep
 
 
 def resumed_generator(torch, ckpt, device, dtype=None):
@@ -2115,7 +2159,7 @@ def infer_fn(torch, apply, model):
     return infer
 
 
-def gan_step_times(torch, gck, dck, clean, noisy, d_funit, reps=5):
+def gan_step_times(torch, gck, dck, clean, noisy, d_funit, reps=5, network="Hul112Disc"):
     """Warm cGAN times from the run's checkpoints on one batch, fp32 (TF32
     off) and bf16 (the generator; the discriminator stays fp32): the
     discriminator step, the generator step with the D1 term, ``learn``'s
@@ -2137,7 +2181,7 @@ def gan_step_times(torch, gck, dck, clean, noisy, d_funit, reps=5):
     out = {}
     for dtype, apply in (("float32", steps.plain_apply), ("bfloat16", steps.bf16_apply)):
         state = resumed_generator(torch, gck, DEV)
-        disc = disc_wrapper(dck, d_funit, DEV)
+        disc = disc_wrapper(dck, d_funit, DEV, network)
         infer = infer_fn(torch, apply, state.model)
         gen = types.SimpleNamespace(infer=infer)
         g = torch.Generator(DEV).manual_seed(0)
@@ -2194,7 +2238,7 @@ def gan_step_times(torch, gck, dck, clean, noisy, d_funit, reps=5):
 
 
 def disc_step_on(torch, dck, d_funit, dev, batch, draws, dtype=None, cudnn=True, tf32=False,
-                 bound=None):
+                 bound=None, network="Hul112Disc"):
     """One discriminator step from ``dck`` on ``dev`` (fake targets noisy),
     in float32 or ``dtype`` (the network and its Adam moments converted),
     with cuDNN or without it, with TF32 planted (``tf32``), its convolutions
@@ -2207,7 +2251,7 @@ def disc_step_on(torch, dck, d_funit, dev, batch, draws, dtype=None, cudnn=True,
                                                               planted_tf32)
 
     dtype = dtype or torch.float32
-    disc = disc_wrapper(dck, d_funit, dev)
+    disc = disc_wrapper(dck, d_funit, dev, network)
     if dtype != torch.float32:
         disc = copy_as(disc, dtype)
     grads, opt_step = [], disc.optimizer.step
@@ -2234,30 +2278,43 @@ def param_spread(a, b, lr):
     return d.max().item(), (d > lr / 100).float().mean().item()
 
 
-def step_vs(a, b, lr=1e-4):
+def step_vs(a, b, lr=1e-4, cancelled=None):
     """How far the discriminator steps ``a`` lie from the steps ``b`` (two
     lists of what ``disc_step_on`` returns, paired), pooled over the pairs:
     the losses; the BN running stats relative to max(1, |stat|); the
     gradients, their norm's relative difference and the worst tensor's
     (max |a - b| / max |b|); the parameters, the largest difference and the
-    share more than 1 % of ``lr`` apart."""
+    share more than 1 % of ``lr`` apart, leaving out the elements that
+    ``cancelled`` marks by parameter name (a gradient 0 in exact
+    arithmetic, whose fp32 rounding noise Adam turns into steps of up to
+    about ``lr``), whose largest difference is reported apart."""
     import torch
 
+    cancelled = cancelled or {}
     keys = [k for k in b[0][3] if not k.endswith(("running_mean", "running_var",
                                                   "num_batches_tracked"))]
     bn = max(((x[3][k] - y[3][k]).abs() / y[3][k].abs().clamp_min(1)).max().item()
              for x, y in zip(a, b) for k in y[3] if k.endswith(("running_mean", "running_var")))
-    p_max, p_share = param_spread([x[3][k] for x in a for k in keys],
-                                  [y[3][k] for y in b for k in keys], lr)
+
+    def live(x, k):
+        return x[3][k][~cancelled[k]] if k in cancelled else x[3][k]
+
+    p_max, p_share = param_spread([live(x, k) for x in a for k in keys],
+                                  [live(y, k) for y in b for k in keys], lr)
     ga = torch.cat([g.flatten() for x in a for g in x[4]])
     gb = torch.cat([g.flatten() for y in b for g in y[4]])
     worst = max(((u - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
                 for x, y in zip(a, b) for u, v in zip(x[4], y[4]))
     loss = max(abs(x[i] - y[i]) for x, y in zip(a, b) for i in (0, 1))
-    return {"loss_abs_diff": loss, "bn_stat_rel_diff": bn,
-            "grad_norm_rel_diff": ((ga - gb).norm() / gb.norm()).item(),
-            "grad_worst_tensor_rel_diff": worst, "param_max_abs_diff": p_max,
-            "param_max_over_lr": p_max / lr, "param_share_over_lr_1pct": p_share}
+    out = {"loss_abs_diff": loss, "bn_stat_rel_diff": bn,
+           "grad_norm_rel_diff": ((ga - gb).norm() / gb.norm()).item(),
+           "grad_worst_tensor_rel_diff": worst, "param_max_abs_diff": p_max,
+           "param_max_over_lr": p_max / lr, "param_share_over_lr_1pct": p_share}
+    if cancelled:
+        out["cancelled_param_max_over_lr_not_held"] = max(
+            (x[3][k] - y[3][k])[m].abs().max().item() for x, y in zip(a, b)
+            for k, m in cancelled.items()) / lr
+    return out
 
 
 def device_kernels(torch, fn, top=10):
@@ -2276,7 +2333,8 @@ def device_kernels(torch, fn, top=10):
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
 
 
-def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GAN_DISC_STEPS):
+def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GAN_DISC_STEPS,
+                    network="Hul112Disc", sub="gan"):
     """One discriminator step and one generator step with the D1 term on
     the card and on the CPU at batch 2, on the same crops, generated crops
     and fuzzy targets (fake targets noisy), held to the GAN_* tolerances;
@@ -2293,20 +2351,24 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
     of the port shows in float64 too); the card's fp32 convolutions to
     their rounding bound, which the TF32 step's must break. Every fp32 step
     is reported against the float64 one, with the kernels the card's fp32
-    step ran."""
+    step ran. The fp32 steps' parameters are held apart from the elements
+    whose float64 gradient is 0 (the biases a BatchNorm cancels, in the
+    pix2pix critics: ``step_vs``'s ``cancelled``). ``network``: the run's
+    discriminator; ``sub``: the directory under ``tmp`` for the trained
+    checkpoint."""
     from nind_denoise_tpu_torch.train import steps
 
     gen = infer_fn(torch, steps.plain_apply, resumed_generator(torch, gck, DEV).model)
     fake = torch.cat([torch.clamp(gen(noisy[i:i + 2].to(DEV)), 0, 1).cpu()
                       for i in range(0, noisy.shape[0] - 1, 2)])
-    disc = disc_wrapper(dck, d_funit, DEV)
+    disc = disc_wrapper(dck, d_funit, DEV, network)
     age = disc.optimizer.count
     g = torch.Generator(DEV).manual_seed(7)
     for k in range(steps_before):
         i = 2 * (k % (noisy.shape[0] // 2))
         disc._step(*(t[i:i + 2].to(DEV) for t in (clean, fake, noisy)), disc.loss < 0.25,
                    generator=g)
-    trained = os.path.join(tmp, "gan", "held")
+    trained = os.path.join(tmp, sub, "held")
     disc.save_model(trained, steps_before, "discriminator")
     tck = os.path.join(trained, f"discriminator_{steps_before}.npz")
     # GAN_RUN_PAIRS batches of 2, each with its own targets; the held step
@@ -2314,26 +2376,29 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
     pairs = [tuple(t[i:i + 2] for t in (clean, noisy, fake))
              for i in range(0, 2 * GAN_RUN_PAIRS, 2)]
     batch = pairs[0]
-    shape = disc_wrapper(dck, d_funit, "cpu").model(torch.cat([noisy[:2], fake[:2]], 1),
+    shape = disc_wrapper(dck, d_funit, "cpu", network).model(torch.cat([noisy[:2], fake[:2]], 1),
                                                      frozen=True).shape
     gu = torch.Generator().manual_seed(5)
     draws = [(torch.rand(shape, generator=gu), torch.rand(shape, generator=gu)) for _ in pairs]
-    held = {dev: disc_step_on(torch, tck, d_funit, dev, batch, draws[0]) for dev in (DEV, "cpu")}
+    held = {dev: disc_step_on(torch, tck, d_funit, dev, batch, draws[0], network=network)
+            for dev in (DEV, "cpu")}
     f64 = torch.float64
     ways = {"card_fp32": (DEV, None, True, False), "cpu_fp32": ("cpu", None, True, False),
             "card_fp32_without_cudnn": (DEV, None, False, False),
             "card_fp32_tf32_planted": (DEV, None, True, True),
             "card_float64": (DEV, f64, True, False), "cpu_float64": ("cpu", f64, True, False)}
     bound = {"card_fp32": {}, "card_fp32_tf32_planted": {}}
-    run = {name: [disc_step_on(torch, dck, d_funit, dev, b, u, dt, cudnn, tf32, bound.get(name))
+    run = {name: [disc_step_on(torch, dck, d_funit, dev, b, u, dt, cudnn, tf32, bound.get(name),
+                               network)
                   for b, u in zip(pairs, draws)]
            for name, (dev, dt, cudnn, tf32) in ways.items()}
-    kernels = device_kernels(torch, lambda: disc_step_on(torch, dck, d_funit, DEV, batch, draws[0]))
+    kernels = device_kernels(torch, lambda: disc_step_on(torch, dck, d_funit, DEV, batch,
+                                                         draws[0], network=network))
 
     res = {}
     for dev in (DEV, "cpu"):
         c, n = clean[:2].to(dev), noisy[:2].to(dev)
-        fool = disc_wrapper(tck, d_funit, dev)
+        fool = disc_wrapper(tck, d_funit, dev, network)
         before = {k: v.clone() for k, v in fool.model.state_dict().items()}
         state = resumed_generator(torch, gck, dev)
         m = steps.make_generator_train_step(steps.plain_apply, GAN_WEIGHTS, c.shape[-1],
@@ -2346,12 +2411,18 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
                     state.opt.hyper["learning_rate"])
 
     (dr_c, df_c, rg_c, _, _), (dr_h, df_h, rg_h, _, _) = held[DEV], held["cpu"]
-    d = step_vs([held[DEV]], [held["cpu"]])
     ref = run["cpu_float64"]
+    names = [k for k in ref[0][3] if not k.endswith(("running_mean", "running_var",
+                                                     "num_batches_tracked"))]
+    top = max(g.abs().max().item() for g in ref[0][4])
+    cancelled = {k: g.abs() <= 1e-9 * top for k, g in zip(names, ref[0][4])}
+    cancelled = {k: m for k, m in cancelled.items() if m.any()}
+    d = step_vs([held[DEV]], [held["cpu"]], cancelled=cancelled)
     own = {"adam_steps_before": age, "batches_of_2": GAN_RUN_PAIRS,
-           "card_vs_cpu_fp32": step_vs(run["card_fp32"], run["cpu_fp32"]),
+           "cancelled_elements": {k: int(m.sum()) for k, m in cancelled.items()},
+           "card_vs_cpu_fp32": step_vs(run["card_fp32"], run["cpu_fp32"], cancelled=cancelled),
            "card_vs_cpu_float64": step_vs(run["card_float64"], ref),
-           "vs_cpu_float64": {name: step_vs(run[name], ref) for name in (
+           "vs_cpu_float64": {name: step_vs(run[name], ref, cancelled=cancelled) for name in (
                "card_fp32", "cpu_fp32", "card_fp32_without_cudnn", "card_fp32_tf32_planted")},
            "conv_error_over_bound": bound,
            "losses_float64": [r[:2] for r in ref],
@@ -2359,7 +2430,7 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
            "card_fp32_step_kernels_ms": kernels}
     (mg_c, pg_c, glr), (mg_h, pg_h, _) = res[DEV], res["cpu"]
     g_max, g_share = param_spread(pg_c, pg_h, glr)
-    rec = {"shape": list(clean[:2].shape), "pred_shape": list(shape),
+    rec = {"network": network, "shape": list(clean[:2].shape), "pred_shape": list(shape),
            "disc_resumed_from": f"{os.path.basename(dck)} + {steps_before} steps on the card",
            "disc": {"loss_real": [dr_c, dr_h], "loss_fake": [df_c, df_h],
                     "ranges_cuda": rg_c, "ranges_cpu": rg_h, **d, "lr": 1e-4},
@@ -2586,8 +2657,9 @@ def phase_gan(torch, card, tmp, kernel_mods, funit=64, batch=30, cs=184, d_funit
         check(k2["max_abs_err"] == 0, f"gan: K2 fp32 at {list(args[0].shape)} not bit-equal: {k2}")
         k2_bf16 = enc1_record(torch, E, [a.to(torch.bfloat16) for a in args], 10)
     clean, noisy = train_batch(torch, root, batch, cs)
-    times = gan_step_times(torch, gck, dck, clean, noisy, d_funit)
-    cpu = gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit)
+    with cached_npz():
+        times = gan_step_times(torch, gck, dck, clean, noisy, d_funit)
+        cpu = gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit)
     emit(card, phase="gan", config="train_conf_utnet_std.yaml + --weight_D1 0.2 --d_lr 1e-4",
          d_network="Hul112Disc", d_funit=d_funit, batch=batch, cs=cs, validation_pairs=n_val,
          batches=len(lines), d_learns=learns, g_steps=g_steps, d_losses=d_losses,
@@ -3210,6 +3282,301 @@ def phase_hul_gen_train(torch, card, tmp, kernel_mods, funit=32, batch=12):
     return launches
 
 
+# The legacy and pix2pix zoo (zoo, zoo_gan) and the profiler capture (trace).
+# Each zoo forward at full width on the card (fp32, TF32 off) against a
+# float64 CPU forward of the same seeded weights, within ZOO_TOL of the
+# reference's largest magnitude; the CPU's own fp32 forward must meet it too
+# (seen on the CPU at 96 px: 1.7e-5 or less). The CPU's references are cut
+# (float64 convolutions run at 40-75 GFLOP/s on the chip machine's eight
+# cores): in eval mode, where each image is its own, to the first
+# ZOO_CPU_EVAL images of the card's batch, and for DnCNN, whose output pixel
+# sees only the 22 px around it through zero-padded 3x3 convs, to a 96 px
+# crop of that image whose interior (22 px in from each side) the card's
+# whole-image output must match; in train mode, where the batch's statistics
+# couple the images, both devices run the first ZOO_CPU_TRAIN images cut to
+# ZOO_TRAIN_HW px.
+ZOO_TOL = 1e-4
+ZOO_CPU_EVAL, ZOO_CPU_TRAIN, ZOO_TRAIN_HW = 1, 2, 128
+# (network, its constructor arguments, the input of the card's forward, the
+# eval reference's crop and its margin or None); RedCNN's 27 VALID 5x5 convs
+# take 108 px off a side before its decoder puts them back: at 256 px one
+# image is 1.8 TFLOP, 40 s of the CPU's float64, so it runs at 128
+ZOO_NETS = (
+    ("DnCNN", {"depth": 22, "n_channels": 64}, (8, 3, 256, 256), (96, 22)),
+    ("RedCNN", {"n_channels": 128, "depth": 30}, (8, 3, 128, 128), None),
+    ("ResnetGenerator", {"ngf": 64, "n_blocks": 9, "norm_type": "batch"}, (8, 3, 256, 256),
+     None),
+    ("PatchGAN", {"ndf": 64, "n_layers": 3}, (8, 6, 256, 256), None),
+    ("PixelDiscriminator", {"ndf": 64}, (8, 6, 256, 256), None),
+    ("MultiscaleDiscriminator", {"ndf": 64, "num_D": 3}, (8, 6, 256, 256), None),
+)
+
+
+def calibrate_bn(torch, model, x):
+    """Set ``model``'s running stats to the statistics of one train-mode
+    forward of ``x`` (as a trained network's match its activations; random
+    stats let the ResnetGenerator's blocks grow until tanh saturates, an
+    ill-conditioned eval forward). Returns the model in eval mode."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    keep = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(x)
+    for m, k in zip(bns, keep):
+        m.momentum = k
+    return model.eval()
+
+
+def zoo_forward(torch, model, x, train):
+    """``model`` in train or eval mode on ``x`` without autograd or TF32:
+    (its outputs as a list, its BN running stats by name), on the CPU."""
+    from nind_denoise_tpu_torch.engine.tile_engine import _tf32
+
+    with torch.no_grad(), _tf32(False):
+        y = model.train(train)(x)
+    ys = y if isinstance(y, list) else [y]
+    stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return [t.detach().cpu().double() for t in ys], stats
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref| over paired lists (or dicts) of tensors."""
+    if isinstance(ref, dict):
+        got, ref = [got[k] for k in ref], list(ref.values())
+    return max(((g.double() - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+               for g, r in zip(got, ref)) if ref else 0.0
+
+
+def phase_zoo(torch, card):
+    """Every network of the legacy and pix2pix zoo at full width, seeded
+    weights with calibrated BatchNorm stats (``calibrate_bn``): the card's
+    eval forward at the batch of ``ZOO_NETS`` (warm ms a forward, its FLOP
+    count and bound), its first ``ZOO_CPU_EVAL`` images (or the interior of
+    a crop's) against the CPU's float64 forward of them; with BatchNorm, a
+    train-mode forward of ``ZOO_CPU_TRAIN`` images cut to ``ZOO_TRAIN_HW``
+    px on each device, outputs and new running stats against float64; each
+    within ZOO_TOL, which the CPU's fp32 forward must meet too."""
+    import copy
+
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from nind_denoise_tpu_torch.engine.tile_engine import _tf32
+    from nind_denoise_tpu_torch.models import build
+    from nind_denoise_tpu_torch.tools import fixtures
+
+    t0 = time.time()
+    recs = {}
+    for i, (network, kw, shape, crop) in enumerate(ZOO_NETS):
+        t1 = time.time()
+        rng = np.random.default_rng(40 + i)
+        model = fixtures.seed_zoo_module(build(network, **kw), 30 + i).eval()
+        has_bn = any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
+        if has_bn:
+            calibrate_bn(torch, model, torch.from_numpy(
+                rng.random((2, shape[1], 128, 128), np.float32)))
+        x = torch.from_numpy(rng.random(shape, np.float32))
+        card_model = copy.deepcopy(model).to(DEV).eval()
+        xd = x.to(DEV)
+        got, _ = zoo_forward(torch, card_model, xd, False)
+
+        def fwd():
+            with torch.no_grad(), _tf32(False):
+                return card_model(xd)
+
+        ms = time_ms(torch, fwd, 3)
+        with FlopCounterMode(display=False) as fc:
+            fwd()
+        flops = fc.get_total_flops()
+        nbytes = 4 * (x.numel() + sum(t.numel() for t in got)
+                      + sum(p.numel() for p in model.parameters()))
+        bound, by = bound_ms(nbytes, flops, "float32")
+        k = ZOO_CPU_EVAL
+        t2 = time.time()
+        xe, card_e = x[:k], [g[:k] for g in got]
+        if crop is not None:  # the interior of a crop, whose pixels see no padding
+            size, m = crop
+            r = (shape[2] - size) // 2
+            xe = xe[:, :, r:r + size, r:r + size]
+            card_e = [g[:, :, r + m:r + size - m, r + m:r + size - m] for g in card_e]
+        ref, _ = zoo_forward(torch, copy.deepcopy(model).double(), xe.double(), False)
+        cpu, _ = zoo_forward(torch, copy.deepcopy(model), xe, False)
+        if crop is not None:
+            ref, cpu = ([t[:, :, m:size - m, m:size - m] for t in ts] for ts in (ref, cpu))
+        err = {"eval": {"cuda": rel_err(card_e, ref), "cpu_fp32": rel_err(cpu, ref)}}
+        if has_bn:
+            xt = x[:ZOO_CPU_TRAIN, :, :ZOO_TRAIN_HW, :ZOO_TRAIN_HW]
+            ref, ref_stats = zoo_forward(torch, copy.deepcopy(model).double(), xt.double(), True)
+            runs = {"cuda": zoo_forward(torch, copy.deepcopy(model).to(DEV), xt.to(DEV), True),
+                    "cpu_fp32": zoo_forward(torch, copy.deepcopy(model), xt, True)}
+            err["train"] = {dev: rel_err(out, ref) for dev, (out, _) in runs.items()}
+            err["train_bn_stats"] = {dev: rel_err(st, ref_stats) for dev, (_, st) in runs.items()}
+        worst = max(v for e in err.values() for v in e.values())
+        recs[network] = {"input": list(shape), **kw, "eval_crop": crop, "ms": ms,
+                         "tflop": flops / 1e12, "build_and_card_s": t2 - t1,
+                         "cpu_reference_s": time.time() - t2,
+                         "bound_ms": bound, "bound_by": by, "ms_over_bound": ms / bound,
+                         "rel_err_vs_float64": err, "output_shapes": [list(t.shape) for t in got]}
+        check(all(math.isfinite(v) for e in err.values() for v in e.values()) and worst <= ZOO_TOL,
+              f"zoo: {network} against float64: {recs[network]}")
+        del card_model, xd, got
+    emit(card, phase="zoo", precision="float32, TF32 off", tolerance=ZOO_TOL,
+         cpu_images={"eval": ZOO_CPU_EVAL, "train": ZOO_CPU_TRAIN, "train_hw": ZOO_TRAIN_HW},
+         nets=recs,
+         phase_s=time.time() - t0)
+
+
+def phase_zoo_gan(torch, card, tmp, kernel_mods, batch=30, cs=184, extra=()):
+    """The cGAN with the pix2pix critics: ``train.loop`` with
+    ``train_conf_utnet_std.yaml`` and ``--weight_D1 0.2 --d_lr 1e-4
+    --d_network PatchGAN --weight_D2 0.2 --d2_lr 1e-4 --d2_network
+    PixelDiscriminator`` (both conditional, 6 channels, ndf 64) for two
+    epochs on the train phase's seeded crops: finite losses, both
+    checkpoints at ndf 64, K2 launched once per learn of either critic
+    (its generator forward) and once per validation pair and validation; a
+    resume from both checkpoints carrying each Adam's count and plateau
+    scheduler; warm times of a PatchGAN both-learn batch against its FLOP
+    bound (``gan_step_times``); one PatchGAN discriminator step and one
+    generator step with its D1 term on the card against the CPU
+    (``gan_card_vs_cpu``). Returns the two-epoch run's counts."""
+    from nind_denoise_tpu_torch.models import ZOO, params_io
+    from nind_denoise_tpu_torch.train import gan, loop
+
+    t0 = time.time()
+    root, val = os.path.join(tmp, "train", "SYN_192_184"), os.path.join(tmp, "train", "val.yaml")
+    if not os.path.isdir(root):
+        write_train_crops(root, val, scenes=4, crops=16)
+    n_val = 3
+    cfg = os.path.join(ROOT, "nind_denoise_tpu_torch", "configs", "train_conf_utnet_std.yaml")
+    argv = ["--config", cfg, "--train_data", root, "--validation_set_yaml", val,
+            "--test_reserve", "0", "--threads", "1", "--device", DEV, *extra,
+            "--weight_D1", "0.2", "--d_lr", "1e-4", "--d_network", "PatchGAN",
+            "--weight_D2", "0.2", "--d2_lr", "1e-4", "--d2_network", "PixelDiscriminator"]
+    exp, launches = counted(torch, kernel_mods, lambda: cli_run(
+        loop, argv + ["--epochs", "3", "--models_dpath", os.path.join(tmp, "zoo_gan", "a")])[0])
+    lines = batch_lines(exp)
+
+    def learns_of(lns, w):
+        return sum(f"loss {w}: " in ln for ln in lns)
+
+    learns = {w: learns_of(lines, w) for w in ("D1", "D2")}
+    g_steps = sum("loss G: " in ln for ln in lines)
+    d_losses = {w: [float(v) for ln in lines for v in re.findall(rf"loss {w}: (\S+) \(", ln)]
+                for w in learns}
+    g_losses = [float(v) for ln in lines for v in re.findall(r"weighted: (\S+)", ln)]
+    check(all(learns.values()) and g_steps > 0 and len(g_losses) == g_steps
+          and all(math.isfinite(v) for v in d_losses["D1"] + d_losses["D2"] + g_losses),
+          f"zoo_gan: losses {lines}")
+    check(launches["enc1"] == sum(learns.values()) + n_val * 3
+          and sum(launches.values()) == launches["enc1"],
+          f"zoo_gan: launches {launches}, expected enc1 {learns} learns + {n_val * 3}")
+    gck = highest(exp, "generator")
+    cks = {"discriminator": ("PatchGAN", "D1"), "discriminator2": ("PixelDiscriminator", "D2")}
+    trees = {name: params_io.load_npz(highest(exp, name)) for name in cks}
+    for name, (net, w) in cks.items():
+        sd = params_io.disc_state_dict_from_jax(net, trees[name]["params"], trees[name]["state"])
+        cfg_d = ZOO[net].config_of(sd)
+        check(cfg_d["input_nc"] == 6 and cfg_d["ndf"] == 64
+              and int(trees[name]["opt"][0]) == learns[w],
+              f"zoo_gan: {name} {cfg_d}, Adam count {trees[name]['opt'][0]} after {learns[w]}")
+    last = params_io.load_npz(gck)["epoch"]
+
+    resumed, resume_launches = counted(torch, kernel_mods, lambda: cli_run(
+        loop, argv + ["--epochs", str(last + 2), "--g_model_path", gck,
+                      "--d_model_path", highest(exp, "discriminator"),
+                      "--d2_model_path", highest(exp, "discriminator2"),
+                      "--models_dpath", os.path.join(tmp, "zoo_gan", "b")])[0])
+    r_lines = batch_lines(resumed)
+    with open(os.path.join(resumed, "train.log")) as f:
+        log = f.read()
+    r_learns = {}
+    for i, (name, (net, w)) in enumerate(cks.items()):
+        r_learns[w] = learns_of(r_lines, w)
+        new = params_io.load_npz(os.path.join(resumed, f"{name}_{last + 1}.npz"))
+        old = trees[name]
+        avg = float(re.search(rf"Discriminator{i + 1} average normalized loss: (\S+)",
+                              log).group(1))
+        sched = gan.ReduceLROnPlateau(old["sched"]["lr"], 0.75, patience=3)
+        sched.best, sched.num_bad = old["sched"]["best"], old["sched"]["num_bad"]
+        sched.step(avg)
+        check(int(new["opt"][0]) == int(old["opt"][0]) + r_learns[w]
+              and (new["sched"]["lr"], new["sched"]["best"], new["sched"]["num_bad"])
+              == (sched.lr, sched.best, sched.num_bad),
+              f"zoo_gan resume {name}: Adam count {new['opt'][0]} after {old['opt'][0]} + "
+              f"{r_learns[w]}, scheduler {new['sched']} from {old['sched']} and {avg}")
+    check(resume_launches["enc1"] == sum(r_learns.values()) + n_val * 2,
+          f"zoo_gan resume: {resume_launches}, {r_learns} learns")
+    cli_s = time.time() - t0
+
+    clean, noisy = train_batch(torch, root, batch, cs)
+    dck = highest(exp, "discriminator")
+    with cached_npz():
+        t1 = time.time()
+        times = gan_step_times(torch, gck, dck, clean, noisy, 32, network="PatchGAN")
+        t2 = time.time()
+        cpu = gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, 32, network="PatchGAN",
+                              sub="zoo_gan")
+    parts_s = {"cli": cli_s, "step_times": t2 - t1, "card_vs_cpu": time.time() - t2}
+    emit(card, phase="zoo_gan", config="train_conf_utnet_std.yaml + --weight_D1 0.2 --d_lr 1e-4 "
+         "--d_network PatchGAN --weight_D2 0.2 --d2_lr 1e-4 --d2_network PixelDiscriminator",
+         batch=batch, cs=cs, validation_pairs=n_val, batches=len(lines), d_learns=learns,
+         g_steps=g_steps, d_losses=d_losses, g_losses=g_losses, launches=launches,
+         checkpoints=[os.path.basename(gck)] + [os.path.basename(highest(exp, n)) for n in cks],
+         resumed_epoch=last + 1, resumed_d_learns=r_learns, resume_launches=resume_launches,
+         parts_s=parts_s, step=times, card_vs_cpu=cpu, phase_s=time.time() - t0)
+    return launches
+
+
+K2_KERNELS = ("enc1_bf16_kernel", "enc1_f32_kernel")
+
+
+def phase_trace(torch, card, tmp, kernel_mods, tif, ckpt):
+    """``denoise_image_cli --trace_dir`` on the 6 MP TIFF in bf16: the
+    Chrome trace written, K2's kernel named in it once per launch the run
+    counted; the output bit-equal to the same run without the trace (run
+    first; the card has run these shapes in the CLI phases); the wall of
+    each. Returns the traced run's counts."""
+    import glob
+
+    import cv2
+
+    from nind_denoise_tpu_torch.pipeline import denoise_image_cli
+
+    t0 = time.time()
+    d = os.path.join(tmp, "trace")
+    os.makedirs(d)
+    argv = ["-i", tif, "--network", "UtNet", "--model_path", ckpt, "--batch_size", "8"]
+    plain_path, traced_path = os.path.join(d, "plain.tif"), os.path.join(d, "traced.tif")
+    t1 = time.time()
+    cli_run(denoise_image_cli, argv + ["-o", plain_path])
+    plain_s = time.time() - t1
+    t1 = time.time()
+    _, launches = counted(torch, kernel_mods, lambda: cli_run(
+        denoise_image_cli, argv + ["-o", traced_path, "--trace_dir", os.path.join(d, "trace")]))
+    traced_s = time.time() - t1
+    a, b = (cv2.imread(p, cv2.IMREAD_UNCHANGED) for p in (plain_path, traced_path))
+    check(a is not None and a.shape == (*HW, 3) and str(a.dtype) == "uint16",
+          f"trace: bad output {plain_path}")
+    equal = bool((a == b).all())
+    check(equal, "trace: the traced run's output differs from the plain run's")
+    files = glob.glob(os.path.join(d, "trace", "*.pt.trace.json"))
+    check(len(files) == 1, f"trace: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    k2 = {k: n for k, n in kernels.items() if any(name in k for name in K2_KERNELS)}
+    check(launches["enc1"] == cli_batches(*HW) and sum(k2.values()) == launches["enc1"],
+          f"trace: K2 launched {launches['enc1']} times, {k2} in the trace")
+    emit(card, phase="trace", shape=[*HW, 3], compute_dtype="bfloat16", plain_wall_s=plain_s,
+         traced_wall_s=traced_s, trace_bytes=os.path.getsize(files[0]), trace_events=len(events),
+         kernel_events=sum(kernels.values()), k2_in_trace=k2, launches=launches,
+         output_bit_equal=equal, top_kernels=dict(kernels.most_common(5)),
+         phase_s=time.time() - t0)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3255,6 +3622,9 @@ def main() -> int:
         by_path["unet_cli"] = phase_unet_cli(torch, card, tmp, kernel_mods, tif)
         by_path["unet_train"] = phase_unet_train(torch, card, tmp, kernel_mods)
         by_path["hul_gen_train"] = phase_hul_gen_train(torch, card, tmp, kernel_mods)
+        phase_zoo(torch, card)
+        by_path["zoo_gan"] = phase_zoo_gan(torch, card, tmp, kernel_mods)
+        by_path["trace"] = phase_trace(torch, card, tmp, kernel_mods, tif, ckpt)
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

@@ -377,10 +377,11 @@ def resolve_apply_fn(network: str, model: nn.Module,
     3) in [0, 1], e.g. ``calib_from_image`` of the input) or, absent one,
     on the synthetic set ``calib_tiles()``. A UNet normalizes with its
     running stats, in fp32 under a bf16 compute dtype (``cast_convs``).
-    UtNet and UNet are the engine's networks, as in the JAX package."""
+    UtNet and UNet are the engine's networks, as in the JAX package;
+    the rest of the zoo raises ValueError ("unsupported generator")."""
     from ..models import get_network
 
-    get_network(network)  # the rest of the zoo raises, naming ROADMAP item 7
+    get_network(network)  # the relic zoo raises, naming ROADMAP item 7.3
     if network not in ENGINE_NETWORKS:
         raise ValueError(f"resolve_apply_fn: unsupported generator {network}")
     if compute_dtype not in _IO_DTYPES:
@@ -416,6 +417,19 @@ def _resolve_tiles(network: str, cs: Optional[int], ucs: Optional[int]):
     if check is not None:
         check(cs)
     return cs, ucs, check
+
+
+def check_engine_network(network: str, flag: str = "--network") -> None:
+    """Raise before anything is loaded or written where the engine does not
+    run ``network``: the relic zoo (NotImplementedError, ROADMAP item 7.3),
+    the rest of the zoo (ValueError, as the JAX engine's
+    ``resolve_apply_fn`` raises), an unknown name (KeyError)."""
+    from ..models import get_network
+
+    get_network(network)
+    if network not in ENGINE_NETWORKS:
+        raise ValueError(f"{flag} {network}: unsupported generator (the engine runs "
+                         f"{', '.join(ENGINE_NETWORKS)})")
 
 
 def size_check(network: str):

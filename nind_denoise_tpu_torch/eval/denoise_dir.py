@@ -16,10 +16,10 @@ denoised. Each set's baseline is decoded once and kept on the device, and
 a freshly denoised uint16 image is scored from the pixels just written
 (the same float32 tensor a decode of the file gives).
 
-Beyond the JAX flags: ``--device`` (CUDA unless ``cpu``). Not ported, and
-raising ``NotImplementedError``: ``--devices`` > 1 and more than one
-process (ROADMAP queue 1 item 9), networks other than UtNet and UNet
-(item 7).
+Beyond the JAX flags: ``--device`` (CUDA unless ``cpu``). Networks other
+than UtNet and UNet raise ValueError, as the JAX engine does. Not ported,
+and raising ``NotImplementedError``: ``--devices`` > 1 and more than one
+process (ROADMAP queue 1 item 9), the relic zoo (item 7.3).
 
     python -m nind_denoise_tpu_torch.eval.denoise_dir --model_path <run dir> \
         --noisy_dir <scenes> --result_dir <results>
@@ -33,8 +33,8 @@ import sys
 from typing import List
 
 from ..core import imgio
-from ..engine.tile_engine import AdaptiveEngine, make_engine
-from ..models import get_network, params_io
+from ..engine.tile_engine import AdaptiveEngine, check_engine_network, make_engine
+from ..models import params_io
 from ..pipeline import denoise_image_cli
 from ..train.dataset import get_baseline_fpath
 from ..utils import conf, json_saver, utilities
@@ -76,7 +76,7 @@ def check_ported(args) -> None:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "more than one process is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
-    get_network(args.g_network)  # the rest of the zoo: ROADMAP queue 1 item 7
+    check_engine_network(args.g_network)
 
 
 def _out_fpath(save_dir: str, fn: str) -> str:

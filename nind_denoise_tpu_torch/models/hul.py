@@ -20,12 +20,10 @@ files load directly. BatchNorm keeps torch's semantics (eps 1e-5, momentum
 ``models/norm.py`` reproduces.
 
 ``forward(x, frozen=False)`` in train mode updates the running stats (the
-discriminator's own step). ``frozen=True`` normalizes with the batch's
-statistics as train mode does but changes no buffer, and reads detached
-parameters, so no gradient reaches the module: the generator's fooling
-term, where the JAX package applies ``train=True`` and drops the new state;
-it takes the batch's statistics in eval mode too. Eval mode without
-``frozen`` normalizes with the running stats.
+discriminator's own step). ``frozen=True`` is ``models/norm.layer``'s
+frozen forward: the batch's statistics in either mode, no buffer changed,
+no gradient to the module (the generator's fooling term). Eval mode
+without ``frozen`` normalizes with the running stats.
 """
 
 from __future__ import annotations
@@ -33,8 +31,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from . import norm
 
 # conv spec: (cin_mult, cout_mult, kernel, dilation, stride, bias, bn);
 # cin_mult None means the raw input's channels
@@ -140,32 +139,9 @@ class HulDisc(nn.Module):
             self.add_module(bname, nn.Sequential(*seq))
         self.out_activation = nn.PReLU(init=0.01)
 
-    @staticmethod
-    def _layer(m: nn.Module, x: torch.Tensor, frozen: bool) -> torch.Tensor:
-        def p(t):
-            return None if t is None else (t.detach() if frozen else t)
-
-        if isinstance(m, nn.Conv2d):
-            return F.conv2d(x, p(m.weight), p(m.bias), m.stride, 0, m.dilation)
-        if isinstance(m, nn.PReLU):
-            return F.prelu(x, p(m.weight))
-        if isinstance(m, nn.LeakyReLU):
-            return F.leaky_relu(x, m.negative_slope)
-        if frozen or not m.training:
-            # frozen: the batch's statistics, no running-stat update
-            return F.batch_norm(x, None if frozen else m.running_mean,
-                                None if frozen else m.running_var, p(m.weight),
-                                p(m.bias), frozen, 0.0, m.eps)
-        return m(x)
-
-    def _block(self, name: str, x: torch.Tensor, frozen: bool) -> torch.Tensor:
-        for m in getattr(self, name):
-            x = self._layer(m, x, frozen)
-        return x
-
     def forward(self, x: torch.Tensor, frozen: bool = False) -> torch.Tensor:
         def blk(name, t):
-            return self._block(name, t, frozen)
+            return norm.sequential(getattr(self, name), t, frozen)
 
         def cat(a, b):
             return torch.cat([a, b], dim=1)
@@ -179,7 +155,7 @@ class HulDisc(nn.Module):
         layer = blk("enc18to6str", layer)
         layer = cat(blk("enc6to2std", layer), blk("enc6to2dil", layer))
         layer = blk("decide", layer)
-        return self._layer(self.out_activation, layer, frozen)
+        return norm.layer(self.out_activation, layer, frozen)
 
     @staticmethod
     def shape_of(state_dict) -> Tuple[int, int]:

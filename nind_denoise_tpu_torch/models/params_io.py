@@ -49,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import ZOO
 from .unet import UNet
 from .utnet import UtNet
 
@@ -366,12 +367,11 @@ def generator_from_state_dict(sd: Dict[str, torch.Tensor], activation: str = "PR
     """The generator ``network`` built on the ``meta`` device with ``sd``'s
     tensors assigned to it (strictly), on the CPU, floating tensors in
     float32."""
-    from . import GENERATORS
+    from . import GENERATORS, ZOO_GENERATORS, get_network
 
-    if network not in GENERATORS:
-        from . import get_network
-
-        get_network(network)  # raises, naming where the network is queued
+    get_network(network)  # raises, naming where the network is queued
+    if network not in GENERATORS and network not in ZOO_GENERATORS:
+        raise ValueError(f"{network} is not a generator")
     sd = {k: v.to("cpu", torch.float32).contiguous() if v.is_floating_point()
           else v.to("cpu") for k, v in sd.items()}
     with torch.device("meta"):
@@ -380,6 +380,8 @@ def generator_from_state_dict(sd: Dict[str, torch.Tensor], activation: str = "PR
         elif network == "UNet":
             model = UNet(int(sd["inc.conv.conv.0.weight"].shape[1]),
                          int(sd["outc.conv.weight"].shape[0]))
+        elif network in ZOO_GENERATORS:
+            model = ZOO[network](**ZOO[network].config_of(sd))
         else:
             w = sd["enc128to126std.0.weight"]
             model = GENERATORS[network](int(w.shape[0]) // 2, activation, int(w.shape[1]))
@@ -395,6 +397,8 @@ def generator_state_dict_from_jax(network: str, params: Dict,
         return unet_state_dict_from_jax(params, state)
     if network in ("Hulb128Net", "Hulbs128Net"):
         return hul_gen_state_dict_from_jax(params, network)
+    if network in ZOO:
+        return zoo_state_dict_from_jax(network, params, state)
     return state_dict_from_jax(params)
 
 
@@ -405,6 +409,8 @@ def generator_jax_from_state_dict(network: str, sd: Dict[str, Any]):
         return unet_jax_from_state_dict(sd)
     if network in ("Hulb128Net", "Hulbs128Net"):
         return hul_gen_jax_from_state_dict(sd, network), None
+    if network in ZOO:
+        return zoo_jax_from_state_dict(network, sd)
     return jax_from_state_dict(sd), None
 
 
@@ -616,7 +622,170 @@ def load_discriminator(model_path: str, network: str,
                     "opt": tree.get("opt"), "sched": tree.get("sched")}
         return {"params": tree, "state": None, "opt": None, "sched": None}
     if fpath.endswith((".pt", ".pth")):
+        from .hul import VARIANTS
+
+        if network not in VARIANTS:
+            # the JAX package's torch_import has no mapping for the zoo
+            raise NotImplementedError(f"torch import for {network}: only a .npz of "
+                                      "either trainer resumes it")
         params, state = hul_jax_from_state_dict(
             torch.load(fpath, map_location="cpu", weights_only=True), network)
         return {"params": params, "state": state, "opt": None, "sched": None}
     raise ValueError(f"unsupported checkpoint format: {fpath}")
+
+
+def disc_state_dict_from_jax(network: str, params: Dict,
+                             state: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """Any discriminator's JAX (params, BN state) -> the port's state_dict;
+    ``state`` None maps the parameters alone (an optimizer moment)."""
+    from .hul import VARIANTS
+
+    if network in VARIANTS:
+        return hul_state_dict_from_jax(params, state, network)
+    return zoo_state_dict_from_jax(network, params, state)
+
+
+def disc_jax_from_state_dict(network: str, sd: Dict[str, Any]):
+    """Inverse of ``disc_state_dict_from_jax``: (params, state)."""
+    from .hul import VARIANTS
+
+    if network in VARIANTS:
+        return hul_jax_from_state_dict(sd, network)
+    return zoo_jax_from_state_dict(network, sd)
+
+
+# -- the legacy and pix2pix zoo -------------------------------------------------
+
+def _nlayer_slots(cfg: Dict, ppre=(), tpre=""):
+    n, bn = cfg["n_layers"], cfg["norm_type"] == "batch"
+    yield "conv", ppre + ("layers", 0, "c"), None, f"{tpre}model.0"
+    for i in range(1, n + 1):
+        yield "conv", ppre + ("layers", i, "c"), None, f"{tpre}model.{2 + 3 * (i - 1)}"
+        if bn:
+            yield "bn", ppre + ("layers", i, "n"), ppre + (f"n{i}",), f"{tpre}model.{3 + 3 * (i - 1)}"
+    yield "conv", ppre + ("out",), None, f"{tpre}model.{2 + 3 * n}"
+
+
+def zoo_slots(network: str, cfg: Dict):
+    """For every conv and BatchNorm of a zoo network of constructor
+    arguments ``cfg``: (kind, JAX params path, JAX state path or None,
+    torch module prefix); kind is ``conv``, ``tconv3`` (a transposed conv,
+    a plain conv over the flipped kernel in JAX, any k and stride) or
+    ``bn``."""
+    if network == "DnCNN":
+        depth = cfg["depth"]
+        yield "conv", ("first",), None, "dncnn.0"
+        for i in range(depth - 2):
+            yield "conv", ("mid", i, "c"), None, f"dncnn.{2 + 3 * i}"
+            yield "bn", ("mid", i, "bn"), (f"bn{i}",), f"dncnn.{3 + 3 * i}"
+        yield "conv", ("last",), None, f"dncnn.{2 + 3 * (depth - 2)}"
+    elif network == "RedCNN":
+        for name, kind in (("conv_first", "conv"), ("conv", "conv"), ("deconv", "tconv3"),
+                           ("deconv_last", "tconv3")):
+            yield kind, (name,), None, name
+    elif network == "ResnetGenerator":
+        bn, nb = cfg["norm_type"] == "batch", cfg["n_blocks"]
+        up = 10 + nb  # the Sequential's index of the first up conv
+        for tag, kind, at in (("inc", "conv", 1), ("down1", "conv", 4), ("down2", "conv", 7),
+                              ("up1", "tconv3", up), ("up2", "tconv3", up + 3)):
+            yield kind, (tag,), None, f"model.{at}"
+            if bn:
+                yield "bn", (tag + "_n",), (tag + "_n",), f"model.{at + 1}"
+        for i in range(nb):
+            for j, at in ((0, 1), (1, 5)):
+                yield "conv", ("blocks", i, f"c{j}"), None, f"model.{10 + i}.conv_block.{at}"
+                if bn:
+                    yield ("bn", ("blocks", i, f"n{j}"), (f"res{i}_n{j}",),
+                           f"model.{10 + i}.conv_block.{at + 1}")
+        yield "conv", ("outc",), None, f"model.{up + 7}"
+    elif network in ("NLayerDiscriminator", "PatchGAN"):
+        yield from _nlayer_slots(cfg)
+    elif network == "PixelDiscriminator":
+        yield "conv", ("c0",), None, "net.0"
+        yield "conv", ("c1",), None, "net.2"
+        if cfg["norm_type"] == "batch":
+            yield "bn", ("n1",), ("n1",), "net.3"
+        yield "conv", ("c2",), None, "net.5"
+    elif network == "MultiscaleDiscriminator":
+        for d in range(cfg["num_D"]):
+            yield from _nlayer_slots(cfg, (f"d{d}",), f"d{d}.")
+    else:
+        raise ValueError(f"{network} is not a network of the legacy or pix2pix zoo")
+
+
+def zoo_config_of_jax(network: str, params: Dict) -> Dict:
+    """The constructor arguments ``zoo_slots`` needs, from a JAX params
+    tree (a tree without norm parameters reads as instance norm)."""
+    if network == "DnCNN":
+        return {"depth": len(params["mid"]) + 2}
+    if network == "ResnetGenerator":
+        return {"n_blocks": len(params["blocks"]),
+                "norm_type": "batch" if "inc_n" in params else "instance"}
+    if network in ("NLayerDiscriminator", "PatchGAN"):
+        return {"n_layers": len(params["layers"]) - 1,
+                "norm_type": "batch" if "n" in params["layers"][1] else "instance"}
+    if network == "PixelDiscriminator":
+        return {"norm_type": "batch" if "n1" in params else "instance"}
+    if network == "MultiscaleDiscriminator":
+        return {**zoo_config_of_jax("PatchGAN", params["d0"]), "num_D": len(params)}
+    return {}
+
+
+def zoo_state_dict_from_jax(network: str, params: Dict,
+                            state: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """A zoo network's JAX (params, BN state) -> the port's state_dict:
+    HWIO kernels as ``nn.Conv2d``, the transposed convs (flipped plain-conv
+    kernels in JAX) as ``nn.ConvTranspose2d``, BN ``scale/bias/mean/var`` as
+    ``weight/bias/running_mean/running_var`` (``num_batches_tracked`` 0).
+    ``state`` None maps the parameters alone (an optimizer moment)."""
+    sd: Dict[str, np.ndarray] = {}
+    for kind, ppath, spath, prefix in zoo_slots(network, zoo_config_of_jax(network, params)):
+        lay = _get(params, ppath)
+        if kind == "bn":
+            sd[prefix + ".weight"] = _f32(lay["scale"])
+            sd[prefix + ".bias"] = _f32(lay["bias"])
+            if state is not None:
+                st = _get(state, spath)
+                sd[prefix + ".running_mean"] = _f32(st["mean"])
+                sd[prefix + ".running_var"] = _f32(st["var"])
+                sd[prefix + ".num_batches_tracked"] = np.zeros((), np.int64)
+            continue
+        sd[prefix + ".weight"] = _WMAP[kind](lay["w"])
+        if "b" in lay:
+            sd[prefix + ".bias"] = _f32(lay["b"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _as_lists(tree: Any) -> Any:
+    """Dicts keyed by list indices (``_set`` with int keys) as lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _as_lists(v) for k, v in tree.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def zoo_jax_from_state_dict(network: str, sd: Dict[str, Any]):
+    """A zoo state_dict -> JAX (params, state): the inverse of
+    ``zoo_state_dict_from_jax``. The state is None where the dict holds no
+    running stats, and for RedCNN, which has none in JAX either; a net
+    without BatchNorm sites has the JAX package's empty state ``{}``."""
+    slots = list(zoo_slots(network, ZOO[network].config_of(sd)))
+    stats = any(k.endswith(".running_mean") for k in sd)
+    bn_sites = any(kind == "bn" for kind, *_ in slots)
+    params: Dict = {}
+    state: Optional[Dict] = None if network == "RedCNN" or (bn_sites and not stats) else {}
+    for kind, ppath, spath, prefix in slots:
+        if kind == "bn":
+            _set(params, ppath, {"scale": _f32(_arr(sd[prefix + ".weight"])),
+                                 "bias": _f32(_arr(sd[prefix + ".bias"]))})
+            if state is not None:
+                _set(state, spath, {"mean": _f32(_arr(sd[prefix + ".running_mean"])),
+                                    "var": _f32(_arr(sd[prefix + ".running_var"]))})
+            continue
+        lay = {"w": np.ascontiguousarray(_WMAP_INV[kind](_arr(sd[prefix + ".weight"])))}
+        if prefix + ".bias" in sd:
+            lay["b"] = _f32(_arr(sd[prefix + ".bias"]))
+        _set(params, ppath, lay)
+    return _as_lists(params), state

@@ -16,10 +16,15 @@ P1); ``int8_static`` calibrates its static scales on crops of the input
 (``ops/qconv.calib_from_image``), as the JAX CLI does, on the whole
 input in ``--whole_image`` mode.
 
-Not ported, and raising ``NotImplementedError`` rather than being ignored:
-more than one device (``--devices`` > 1, ROADMAP queue 1 item 9),
-``--trace_dir`` (item 10) and networks outside the port's model zoo
-(item 7). The engine runs UtNet and UNet, as the JAX one does.
+``--trace_dir <dir>`` runs the whole command under ``torch.profiler``
+(``utils/log.maybe_profile``) and writes a Chrome trace there, as the JAX
+CLI writes a ``jax.profiler`` trace.
+
+The engine runs UtNet and UNet, as the JAX one does: the rest of the zoo
+raises ValueError before anything is loaded or written. Not ported, and
+raising ``NotImplementedError`` rather than being ignored: more than one
+device (``--devices`` > 1, ROADMAP queue 1 item 9) and the relic zoo
+(item 7.3).
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_image_cli \
         -i noisy.tif -o denoised.tiff --network UtNet --model_path ckpt.npz
@@ -37,11 +42,11 @@ import numpy as np
 
 from ..core import imgio
 from ..core.tiles import TilingError, adapt_cs_ucs, default_cs_ucs
-from ..engine.tile_engine import make_engine, size_check
-from ..models import get_network, params_io
+from ..engine.tile_engine import check_engine_network, make_engine, size_check
+from ..models import params_io
 from ..ops.qconv import calib_from_image
 from ..utils import conf
-from ..utils.log import StageTimers
+from ..utils.log import StageTimers, maybe_profile
 from . import exif as exif_mod
 
 
@@ -113,7 +118,8 @@ def build_parser() -> conf.LayeredArgumentParser:
                         "int8_static calibrates its static scales on the input")
     p.add_argument("--precision", default="default", choices=["default", "float32"],
                    help="float32: no TF32 in float32 convs and matmuls")
-    p.add_argument("--trace_dir", help="not ported yet (ROADMAP queue 1 item 10)")
+    p.add_argument("--trace_dir", help="write a torch.profiler Chrome trace of the run "
+                                       "into this directory")
     p.add_argument("-q", "--quality", type=int, default=95,
                    help="JPEG quality for .jpg outputs")
     p.add_argument("--devices", type=int,
@@ -127,9 +133,7 @@ def check_ported(args) -> None:
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
-    if args.trace_dir:
-        raise NotImplementedError("--trace_dir is not ported yet (ROADMAP queue 1 item 10)")
-    get_network(args.g_network)  # the rest of the zoo: ROADMAP queue 1 item 7
+    check_engine_network(args.g_network)
 
 
 def load_generator_model(args):
@@ -224,7 +228,8 @@ def run(args, timers: Optional[StageTimers] = None) -> str:
 
 def main(argv=None):
     args, _ = build_parser().parse_known_args_layered(argv)
-    return run(args)
+    with maybe_profile(args.trace_dir):
+        return run(args)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,9 @@ the Hul discriminators need) back to the reference's state_dict layout,
 written with ``torch.save``.
 
 Both directions are exact. Networks: UtNet, UNet, Hul112Disc, Hulb112Disc,
-Hull112Disc, Hulf112Disc, Hulb128Net, Hulbs128Net. MobileNetV3 is not
-ported (ROADMAP item 7.3).
+Hull112Disc, Hulf112Disc, Hulb128Net, Hulbs128Net. The legacy and pix2pix
+zoo has no torch mapping, as in the JAX package; MobileNetV3 is not ported
+(ROADMAP item 7.3).
 
     python -m nind_denoise_tpu_torch.tools.convert_checkpoint generator_650.pt \\
         generator_650.npz --network UtNet
@@ -43,8 +44,10 @@ def _check(network: str) -> None:
         raise NotImplementedError(
             "MobileNetV3 (third_party) is not ported yet (ROADMAP item 7.3)")
     if network not in NETWORKS:
-        raise NotImplementedError(f"torch import/export for {network} "
-                                  f"(supported: {', '.join(NETWORKS)})")
+        # the legacy and pix2pix zoo among them: the JAX package's
+        # torch_import and torch_export have no mapping for it either
+        raise NotImplementedError(f"torch import/export for {network}: the network has no "
+                                  f"torch mapping (supported: {', '.join(NETWORKS)})")
 
 
 def convert(src: str, dst: str, network: str) -> str:

@@ -6,7 +6,9 @@ tests and chip_smoke.py.
 ``write_torch_checkpoint`` the same weights as a torch state_dict;
 ``write_unet_checkpoint`` a UNet with its BatchNorm state and
 ``write_hul_gen_checkpoint`` a Hul generator, likewise (``unet_tree`` and
-``hul_gen_params`` give their trees).
+``hul_gen_params`` give their trees); ``seed_zoo_module`` draws the
+weights (BatchNorm stats included) of a port module of the legacy or
+pix2pix zoo from a seed.
 ``plugin_command`` is the darktable plugin's command line, built from the
 template in its Lua source, and ``SIDECAR`` a darktable XMP sidecar with a
 history of first-stage, second-stage and unknown operations.
@@ -272,6 +274,39 @@ def write_hul_gen_checkpoint(path: str, network: str, funit: int, seed: int,
 
 PLUGIN_LUA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "lua-scripts", "nind_denoise_tpu_rl.lua")
+
+
+def _redraw_bn(rng, c: int):
+    """BatchNorm scale, bias, mean and var of ``c`` channels from ``rng``: a
+    fresh init's ones and zeros would hide a swapped mapping."""
+    return tuple(rng.uniform(lo, hi, c).astype(np.float32)
+                 for lo, hi in ((0.5, 1.5), (-0.3, 0.3), (-0.2, 0.2), (0.5, 1.5)))
+
+
+def seed_zoo_module(model, seed: int):
+    """Redraw ``model``'s weights from ``seed``, in place, with numpy: conv
+    kernels He-normal (std sqrt(2 / fan_in), so ReLU stacks keep their
+    scale), biases uniform(+-0.1), every BatchNorm's scale in [0.5, 1.5],
+    bias in [-0.3, 0.3], mean in [-0.2, 0.2] and var in [0.5, 1.5]. The same
+    seed gives the same weights on any device."""
+    import torch
+    from torch import nn
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else \
+                    w.shape[0] * w.shape[2] * w.shape[3] // (m.stride[0] * m.stride[1])
+                w.copy_(torch.from_numpy(rng.normal(0, math.sqrt(2.0 / fan_in), w.shape)))
+                if m.bias is not None:
+                    m.bias.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, m.bias.shape)))
+            elif isinstance(m, nn.BatchNorm2d):
+                for t, a in zip((m.weight, m.bias, m.running_mean, m.running_var),
+                                _redraw_bn(rng, m.num_features)):
+                    t.copy_(torch.from_numpy(a))
+    return model
 
 
 def plugin_template(lua_path: str = PLUGIN_LUA) -> str:

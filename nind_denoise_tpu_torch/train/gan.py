@@ -4,9 +4,13 @@
 The reference's Discriminator (nn_common.py:275-361): Hul112Disc by
 default, conditional 6-channel input, Adam without amsgrad, MSE against
 fuzzy targets, scalar loss (sqrt(fake) + sqrt(real)) / 2,
-ReduceLROnPlateau (factor 0.75, threshold 1e-8). Checkpoints are the JAX
-trainer's ``<keyword>_<epoch>.npz`` (params, BN state, Adam leaves, the
-scheduler's state): either trainer resumes from the other's.
+ReduceLROnPlateau (factor 0.75, threshold 1e-8). Any discriminator of the
+registry builds here: the Hul family at ``input_channels`` and ``funit``;
+the pix2pix critics (PatchGAN, PixelDiscriminator) at their defaults, 6
+channels and ndf 64, as the JAX package's init drops both arguments.
+Checkpoints are the JAX trainer's ``<keyword>_<epoch>.npz`` (params, BN
+state, Adam leaves, the scheduler's state): either trainer resumes from
+the other's.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from ..models import get_network, params_io
+from ..models import HUL_DISCS, ZOO, HulDisc, build, params_io
 from ..utils.device import resolve_device
 from . import steps
 
@@ -45,13 +49,19 @@ class ReduceLROnPlateau:
         return self.lr
 
 
-def init_disc(network: str, input_channels: int, funit: int, seed: int):
-    """A Hul discriminator with torch's default init, drawn on the CPU from
-    a generator seeded with ``seed`` (the same weights whatever the
-    device; JAX's PRNG init cannot be reproduced)."""
+def init_disc(network: str, input_channels: int, funit: int, seed: int, sd=None):
+    """A discriminator with torch's default init, drawn on the CPU from a
+    generator seeded with ``seed`` (the same weights whatever the device;
+    JAX's PRNG init cannot be reproduced), shaped as the state_dict ``sd``
+    where one is given."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return get_network(network)(network, input_channels, funit)
+        if sd is None:
+            return build(network, input_channels=input_channels, funit=funit)
+        if network in HUL_DISCS:
+            cin, f = HulDisc.shape_of(sd)
+            return HulDisc(network, cin, f)
+        return ZOO[network](**ZOO[network].config_of(sd))
 
 
 class DiscriminatorWrapper:
@@ -72,14 +82,13 @@ class DiscriminatorWrapper:
         self.conditional = conditional
         self.advantage = advantage
         self.lr = lr if lr is not None else 1e-4
-        model = init_disc(network, 6 if conditional else 3, funit, seed)
-        opt_leaves = sched = None
+        opt_leaves = sched = sd = None
         if model_path:
             loaded = params_io.load_discriminator(model_path, network, args.models_dpath,
                                                   keyword)
-            sd = params_io.hul_state_dict_from_jax(loaded["params"], loaded["state"], network)
-            cin, f = model.shape_of(sd)
-            model = init_disc(network, cin, f, seed)
+            sd = params_io.disc_state_dict_from_jax(network, loaded["params"], loaded["state"])
+        model = init_disc(network, 6 if conditional else 3, funit, seed, sd)
+        if sd is not None:
             # a checkpoint without BN state keeps the fresh running stats
             model.load_state_dict({**model.state_dict(), **sd}, strict=True)
             opt_leaves, sched, params = loaded["opt"], loaded["sched"], loaded["params"]
@@ -102,7 +111,7 @@ class DiscriminatorWrapper:
         """Load a checkpoint's Adam ``leaves`` (its params tree ``params``)."""
         count, hyper, inner, moments = params_io.opt_from_leaves(
             leaves, params, names=params_io.ADAM_MOMENTS,
-            from_jax=lambda t: params_io.hul_state_dict_from_jax(t, None, self.network))
+            from_jax=lambda t: params_io.disc_state_dict_from_jax(self.network, t))
         opt = self.optimizer
         opt.set_hyper(**hyper)
         opt.count, opt.inner_count = count, inner
@@ -142,14 +151,14 @@ class DiscriminatorWrapper:
     def checkpoint(self):
         """The JAX trainer's discriminator checkpoint tree (numpy leaves)."""
         sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
-        params, state = params_io.hul_jax_from_state_dict(sd, self.network)
+        params, state = params_io.disc_jax_from_state_dict(self.network, sd)
         opt = self.optimizer
         names = [k for k, _ in self.model.named_parameters()]
         moments = {m: {k: t.detach().cpu() for k, t in zip(names, opt.moments(m))}
                    for m in params_io.ADAM_MOMENTS}
         leaves = params_io.opt_leaves(
             opt.count, opt.hyper, opt.inner_count, moments, names=params_io.ADAM_MOMENTS,
-            to_jax=lambda m: params_io.hul_jax_from_state_dict(m, self.network)[0])
+            to_jax=lambda m: params_io.disc_jax_from_state_dict(self.network, m)[0])
         return {"params": params, "state": state, "opt": leaves,
                 "sched": {"lr": self.scheduler.lr, "best": self.scheduler.best,
                           "num_bad": self.scheduler.num_bad}}

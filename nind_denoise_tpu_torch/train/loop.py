@@ -1,6 +1,6 @@
 """nn_train on one GPU — train a denoising generator (UtNet, UNet,
-Hulb128Net or Hulbs128Net), alone or as a cGAN against one or two Hul
-discriminators.
+Hulb128Net or Hulbs128Net), alone or as a cGAN against one or two
+discriminators (the Hul family, PatchGAN, the pixel critic).
 
 The counterpart of ``nind_denoise_tpu/train/loop.py`` (the reference's
 nn_train.py:118-448): layered YAML config
@@ -18,7 +18,9 @@ output_test_images, keep_all_output_images}.
 
 ``--weight_D1``/``--weight_D2`` > 0 add the conditional discriminators
 (``train/gan.py``; ``--d_network``/``--d2_network`` one of the four Hul
-discriminators), scheduled against the generator by the reference's
+discriminators, ``NLayerDiscriminator``/``PatchGAN`` or
+``PixelDiscriminator``, the last two at 6 channels and ndf 64 whatever
+``--d_funit`` says, as in JAX), scheduled against the generator by the reference's
 stochastic rule from ``random.Random(seed)``, with ``--freeze_generator``
 and ``--discriminator_advantage``. ``--device_cache N`` holds N crop
 pairs on the device and augments them there (``train/device_cache.py``).
@@ -27,9 +29,12 @@ Checkpoints are the JAX trainer's ``.npz`` files (params, optimizer
 leaves, epoch; discriminators with their BN state and plateau scheduler;
 ``models/params_io``): either trainer resumes from the other's with
 ``--g_model_path`` / ``--d_model_path`` / ``--d2_model_path``. UNet's
-checkpoints carry its BatchNorm state as JAX's do. Not ported yet, and
-refused: networks outside the port's model zoo (ROADMAP item 7) and
-multi-host runs (item 9).
+checkpoints carry its BatchNorm state as JAX's do. Refused before
+anything is written (``check_ported``): a pix2pix critic with
+``--not_conditional`` and ``MultiscaleDiscriminator`` (either fails at its
+first step in JAX), the registry's other generators (as in JAX), and what
+is not ported yet: the relic zoo (ROADMAP item 7.3) and multi-host runs
+(item 9).
 
 UNet trains with BatchNorm in train mode (batch statistics, running stats
 updated; microbatch by microbatch under ``--grad_accum``), validates in
@@ -66,7 +71,7 @@ import torch
 import yaml
 
 from ..engine.tile_engine import _tf32
-from ..models import GENERATORS, HUL_DISCS, get_network, params_io
+from ..models import GENERATORS, ZOO_DISCS, get_network, is_discriminator, params_io
 from ..utils import conf, json_saver
 from ..utils.device import resolve_device
 from ..utils.log import Printer
@@ -191,21 +196,37 @@ def build_parser():
 
 
 def check_ported(args) -> None:
-    """Refuse what this slice of the port does not run, naming where it is
-    queued in ROADMAP.md."""
-    for flag, weight, network in (("--d_network", args.weight_D1, args.d_network),
-                                  ("--d2_network", args.weight_D2, args.d2_network)):
-        if (weight or 0) > 0 and network not in HUL_DISCS:
-            raise NotImplementedError(
-                f"{flag} {network}: the port's discriminators are the Hul "
-                f"family {sorted(HUL_DISCS)}; the rest of the model zoo is "
-                f"ROADMAP item 7")
+    """Refuse, before anything is written, what this port does not run:
+    the pix2pix discriminators unconditional (they take 6 channels whatever
+    the flags say, so such a run fails at its first step in the JAX
+    package), ``MultiscaleDiscriminator`` (the step takes one prediction
+    map), a generator the reference never trains, and what is queued in
+    ROADMAP.md (the relic zoo: item 7.3; multi-host: item 9)."""
+    for flag, weight, network, uncond in (
+            ("--d_network", args.weight_D1, args.d_network, args.not_conditional),
+            ("--d2_network", args.weight_D2, args.d2_network, args.not_conditional_2)):
+        if not (weight or 0) > 0:
+            continue
+        get_network(network)  # the relic zoo: ROADMAP item 7.3
+        if network == "MultiscaleDiscriminator":
+            raise ValueError(
+                f"{flag} {network}: it returns one prediction map per scale, and the "
+                f"discriminator step takes one")
+        if network in ZOO_DISCS and uncond:
+            raise ValueError(
+                f"{flag} {network} with --not_conditional{'_2' if flag[2:4] == 'd2' else ''}: "
+                f"the pix2pix discriminators take 6 channels (noisy + candidate) whatever "
+                f"the flags say, so an unconditional step cannot run, as in the JAX package")
+        if not is_discriminator(network):
+            raise ValueError(f"{flag} {network}: not a discriminator")
     if args.g_network not in GENERATORS:
-        get_network(args.g_network)  # the rest of the zoo: ROADMAP item 7
+        get_network(args.g_network)  # the relic zoo: ROADMAP item 7.3
         raise SystemExit(
             f"--g_network {args.g_network}: the trainer supports "
             f"{', '.join(GENERATORS)} (the reference's trainable generators); "
-            f"{args.g_network} is a discriminator")
+            f"{args.g_network} is "
+            + ("a discriminator" if is_discriminator(args.g_network)
+               else "registry/inference-only"))
     if args.coordinator or args.num_processes or args.process_id is not None:
         raise NotImplementedError(
             "--coordinator/--num_processes/--process_id: multi-host training "

@@ -1,13 +1,16 @@
-"""stdout + logfile tee and per-stage wall-clock timers: copies of
-``Printer`` and ``StageTimers`` from ``nind_denoise_tpu/utils/log.py``.
-The trainer tees its log through ``Printer``; the CLIs print
-``StageTimers.summary()`` under ``-v``."""
+"""stdout + logfile tee, per-stage wall-clock timers and the profiler
+capture: the counterparts of ``Printer``, ``StageTimers`` and
+``maybe_profile`` in ``nind_denoise_tpu/utils/log.py``. The trainer tees
+its log through ``Printer``; the CLIs print ``StageTimers.summary()``
+under ``-v``; ``denoise_image_cli --trace_dir`` runs under
+``maybe_profile``."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class Printer:
@@ -47,3 +50,31 @@ class StageTimers:
     def summary(self) -> str:
         parts = [f"{k}: {v:.3f}s/{self.counts[k]}x" for k, v in sorted(self.totals.items())]
         return ", ".join(parts)
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: Optional[str]):
+    """Within, where ``trace_dir`` is given: ``torch.profiler`` records the
+    host's operators and, where CUDA is present, the card's kernels and
+    copies; on a clean exit it writes a
+    Chrome trace (``chrome://tracing`` or Perfetto) into ``trace_dir``,
+    which it creates, as ``<host>_<pid>.<ms>.pt.trace.json``. The traced
+    work computes what it computes without the trace."""
+    if not trace_dir:
+        yield
+        return
+    import socket
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    fpath = os.path.join(trace_dir, f"{socket.gethostname()}_{os.getpid()}."
+                                    f"{int(time.time() * 1e3)}.pt.trace.json")
+    prof.export_chrome_trace(fpath)
+    print(f"Profiler trace written to {fpath}")

@@ -163,15 +163,19 @@ def test_raw_without_darktable_raises(tmp_path, checkpoint):
                        "--model_path", checkpoint, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("cli,argv,item", [
-    ("denoise_image", ["--devices", "2"], "item 9"),
-    ("denoise_image", ["--trace_dir", "trace"], "item 10"),
-    ("denoise_image", ["--network", "DnCNN"], "item 7"),
-    ("denoise", ["--devices", "2"], "item 9"),
+@pytest.mark.parametrize("cli,argv,exc,item", [
+    ("denoise_image", ["--devices", "2"], NotImplementedError, "item 9"),
+    # --trace_dir runs since the profiler capture was ported (tests/test_torch_legacy.py);
+    # a refused run writes no trace
+    ("denoise_image", ["--network", "DnCNN", "--trace_dir", "trace"], ValueError,
+     "unsupported generator"),
+    ("denoise_image", ["--network", "HuNet"], NotImplementedError, "item 7.3"),
+    ("denoise", ["--devices", "2"], NotImplementedError, "item 9"),
 ])
-def test_flags_not_ported_raise(tmp_path, checkpoint, cli, argv, item):
+def test_flags_not_ported_raise(tmp_path, monkeypatch, checkpoint, cli, argv, exc, item):
+    monkeypatch.chdir(tmp_path)  # a relative --trace_dir would land here
     tif = _tiff(tmp_path / "img.tif")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         if cli == "denoise":
             port_cli.main([str(tif), "--tiff-input", "--model_path", checkpoint,
                            "--device", "cpu"] + argv)

@@ -168,9 +168,15 @@ def test_frozen_forward_takes_batch_statistics_in_eval_mode_too(net, cin, jax_ne
 
 
 def test_get_network_names_item_7_for_the_rest_of_the_zoo():
+    """The legacy and pix2pix zoo resolves (tests/test_torch_{legacy,p2p}.py);
+    the relic zoo and the torchvision networks raise naming item 7.3."""
     assert get_network("Hulf112Disc") is HulDisc
     assert get_network("UtNet").__name__ == "UtNet"
     assert get_network("UNet").__name__ == "UNet"
-    for name in ("NLayerDiscriminator", "PixelDiscriminator", "DnCNN"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    for name, cls in (("NLayerDiscriminator", "NLayerDiscriminator"),
+                      ("PatchGAN", "NLayerDiscriminator"),
+                      ("PixelDiscriminator", "PixelDiscriminator"), ("DnCNN", "DnCNN")):
+        assert get_network(name).__name__ == cls
+    for name in ("HunkyDisc", "Hul144Disc", "MobileNetV3"):
+        with pytest.raises(NotImplementedError, match="item 7.3"):
             get_network(name)
