@@ -162,7 +162,7 @@ limit as nvidia-smi reports them):
    batch of 8 (256 px, RedCNN 128; ms, FLOP count, bound), held with the
    CPU's fp32 forward to a float64 CPU forward (ZOO_TOL of its largest
    magnitude) on its first image (DnCNN: the interior of a 96 px crop),
-   and, for the BatchNorm nets, a train-mode forward of 2 images cut to
+   and, for the BatchNorm nets, a train-mode forward of 4 images cut to
    128 px on each device, outputs and running stats, held likewise.
 25. zoo_gan: the gan phase's config with PatchGAN as D1 and the pixel
    critic as D2 for two epochs: finite losses, both checkpoints at 6
@@ -172,7 +172,17 @@ limit as nvidia-smi reports them):
    warm times against its FLOP bound, and one PatchGAN discriminator step
    (and a generator step with its D1 term) on the card against the CPU, as
    the gan phase holds its own.
-26. trace: ``denoise_image_cli --trace_dir`` on the 6 MP TIFF in bf16: a
+26. relics: the relic zoo (HunNet, HuNet, Hul160Net = HulNet, HuDisc,
+   Hul128Net, Hul144Disc with each head, HunkyDisc, HunkyNet, RedishCNN)
+   and MobileNetV3 at JAX's default widths, as zoo holds its networks (at
+   RELIC_TOL): the card's eval forward at a batch of 8 at each net's native
+   size (RELIC_NETS), its first image held to the CPU's float64 one;
+   for the BatchNorm nets a train-mode forward of 4 images, outputs and
+   running stats; MobileNetV3's train-mode forward raises on the card.
+27. relic_gan: zoo_gan with HuDisc as D1 and Hul144Disc as D2 (funit 32,
+   6 channels): the two-epoch run, K2 launches, the resume, a Hul144Disc
+   both-learn batch's times and one Hul144Disc step held card against CPU.
+28. trace: ``denoise_image_cli --trace_dir`` on the 6 MP TIFF in bf16: a
    Chrome trace that names K2's kernel once per launch, and an output
    bit-equal to the same run without the trace.
 
@@ -2072,7 +2082,10 @@ def phase_train(torch, card, tmp, kernel_mods, funit=64, batch=30, cs=184, extra
 # losses and BN stats as above; the same step in float64 on the card
 # against float64 on the CPU to GAN_F64_TOL (losses, BN stats relative,
 # gradients' norm relative, parameters absolute); and every fp32
-# convolution of the card's step, forward, input and weight gradients,
+# convolution of the card's step, forward, input and weight gradients (the
+# backward recomputed by summation, cuDNN off: cuDNN's FFT and Winograd
+# backward passes are not sums and may read above the bound, PERF.md §7;
+# reported as card_fp32_cudnn_backward),
 # under GAN_CONV_BOUND of its rounding bound
 # (disc_step_noise.conv_error_over_bound), a bound the same step with TF32
 # allowed must break. This step's fp32 gradient is only good to 0.1-2 % on
@@ -2238,13 +2251,14 @@ def gan_step_times(torch, gck, dck, clean, noisy, d_funit, reps=5, network="Hul1
 
 
 def disc_step_on(torch, dck, d_funit, dev, batch, draws, dtype=None, cudnn=True, tf32=False,
-                 bound=None, network="Hul112Disc"):
+                 bound=None, network="Hul112Disc", cudnn_bound=None):
     """One discriminator step from ``dck`` on ``dev`` (fake targets noisy),
     in float32 or ``dtype`` (the network and its Adam moments converted),
     with cuDNN or without it, with TF32 planted (``tf32``), its convolutions
-    held to their rounding bound into the dict ``bound``
-    (``disc_step_noise.bounding_convs``): (loss_real, loss_fake, ranges,
-    its state_dict, the step's gradients), tensors in float64 on the CPU."""
+    held to their rounding bound into the dicts ``bound`` and
+    ``cudnn_bound`` (``disc_step_noise.bounding_convs``): (loss_real,
+    loss_fake, ranges, its state_dict, the step's gradients), tensors in
+    float64 on the CPU."""
     import contextlib
 
     from nind_denoise_tpu_torch.tools.disc_step_noise import (bounding_convs, copy_as,
@@ -2257,13 +2271,15 @@ def disc_step_on(torch, dck, d_funit, dev, batch, draws, dtype=None, cudnn=True,
     grads, opt_step = [], disc.optimizer.step
 
     def spy():  # the summed gradients, which the step frees after the update
-        grads.extend(p.grad.detach().cpu().double() for p in disc.optimizer.params)
+        grads.extend(p.grad.detach().cpu().double() if p.grad is not None
+                     else torch.zeros(p.shape, dtype=torch.float64)  # a head not run
+                     for p in disc.optimizer.params)
         return opt_step()
 
     disc.optimizer.step = spy
     c, n, f = (t.to(dev, dtype) for t in batch)
     off = contextlib.nullcontext() if cudnn else torch.backends.cudnn.flags(enabled=False)
-    with off, planted_tf32(tf32), bounding_convs(bound):
+    with off, planted_tf32(tf32), bounding_convs(bound, cudnn_bound):
         lr_, lf_, ranges = disc._step(c, f, n, True, draws=tuple(d.to(dev, dtype) for d in draws))
     return (float(lr_), float(lf_), ranges.tolist(),
             {k: v.detach().cpu().double() for k, v in disc.model.state_dict().items()}, grads)
@@ -2334,7 +2350,7 @@ def device_kernels(torch, fn, top=10):
 
 
 def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GAN_DISC_STEPS,
-                    network="Hul112Disc", sub="gan"):
+                    network="Hul112Disc", sub="gan", n_pairs=GAN_RUN_PAIRS, age_cudnn=True):
     """One discriminator step and one generator step with the D1 term on
     the card and on the CPU at batch 2, on the same crops, generated crops
     and fuzzy targets (fake targets noisy), held to the GAN_* tolerances;
@@ -2349,32 +2365,40 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
     CPU in fp32, the card in fp32 without cuDNN and with TF32 planted, and
     both in float64: the float64 steps are held card against CPU (a fault
     of the port shows in float64 too); the card's fp32 convolutions to
-    their rounding bound, which the TF32 step's must break. Every fp32 step
+    their rounding bound, which the TF32 step's must break (the backward
+    passes recomputed by summation; cuDNN's own recompute, FFT and Winograd
+    transforms for some critics, is reported, not held). Every fp32 step
     is reported against the float64 one, with the kernels the card's fp32
     step ran. The fp32 steps' parameters are held apart from the elements
     whose float64 gradient is 0 (the biases a BatchNorm cancels, in the
     pix2pix critics: ``step_vs``'s ``cancelled``). ``network``: the run's
     discriminator; ``sub``: the directory under ``tmp`` for the trained
-    checkpoint."""
+    checkpoint; ``n_pairs``: the batches of 2 stepped from it;
+    ``age_cudnn``: False trains that checkpoint with cuDNN off (what counts
+    there is its Adam state's age, and cuDNN's heuristics give some critics
+    slow FFT convolutions; the held steps keep cuDNN)."""
     from nind_denoise_tpu_torch.train import steps
 
+    secs, t0 = {}, time.time()
     gen = infer_fn(torch, steps.plain_apply, resumed_generator(torch, gck, DEV).model)
     fake = torch.cat([torch.clamp(gen(noisy[i:i + 2].to(DEV)), 0, 1).cpu()
                       for i in range(0, noisy.shape[0] - 1, 2)])
     disc = disc_wrapper(dck, d_funit, DEV, network)
     age = disc.optimizer.count
     g = torch.Generator(DEV).manual_seed(7)
-    for k in range(steps_before):
-        i = 2 * (k % (noisy.shape[0] // 2))
-        disc._step(*(t[i:i + 2].to(DEV) for t in (clean, fake, noisy)), disc.loss < 0.25,
-                   generator=g)
+    with contextlib.nullcontext() if age_cudnn else torch.backends.cudnn.flags(enabled=False):
+        for k in range(steps_before):
+            i = 2 * (k % (noisy.shape[0] // 2))
+            disc._step(*(t[i:i + 2].to(DEV) for t in (clean, fake, noisy)), disc.loss < 0.25,
+                       generator=g)
     trained = os.path.join(tmp, sub, "held")
     disc.save_model(trained, steps_before, "discriminator")
     tck = os.path.join(trained, f"discriminator_{steps_before}.npz")
-    # GAN_RUN_PAIRS batches of 2, each with its own targets; the held step
+    secs["train_on_card"], t0 = time.time() - t0, time.time()
+    # ``n_pairs`` batches of 2, each with its own targets; the held step
     # takes the first
     pairs = [tuple(t[i:i + 2] for t in (clean, noisy, fake))
-             for i in range(0, 2 * GAN_RUN_PAIRS, 2)]
+             for i in range(0, 2 * n_pairs, 2)]
     batch = pairs[0]
     shape = disc_wrapper(dck, d_funit, "cpu", network).model(torch.cat([noisy[:2], fake[:2]], 1),
                                                      frozen=True).shape
@@ -2382,20 +2406,24 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
     draws = [(torch.rand(shape, generator=gu), torch.rand(shape, generator=gu)) for _ in pairs]
     held = {dev: disc_step_on(torch, tck, d_funit, dev, batch, draws[0], network=network)
             for dev in (DEV, "cpu")}
+    secs["held"], t0 = time.time() - t0, time.time()
     f64 = torch.float64
     ways = {"card_fp32": (DEV, None, True, False), "cpu_fp32": ("cpu", None, True, False),
             "card_fp32_without_cudnn": (DEV, None, False, False),
             "card_fp32_tf32_planted": (DEV, None, True, True),
             "card_float64": (DEV, f64, True, False), "cpu_float64": ("cpu", f64, True, False)}
-    bound = {"card_fp32": {}, "card_fp32_tf32_planted": {}}
-    run = {name: [disc_step_on(torch, dck, d_funit, dev, b, u, dt, cudnn, tf32, bound.get(name),
-                               network)
-                  for b, u in zip(pairs, draws)]
-           for name, (dev, dt, cudnn, tf32) in ways.items()}
+    bound = {"card_fp32": {}, "card_fp32_tf32_planted": {}, "card_fp32_cudnn_backward": {}}
+    run = {}
+    for name, (dev, dt, cudnn, tf32) in ways.items():
+        run[name] = [disc_step_on(torch, dck, d_funit, dev, b, u, dt, cudnn, tf32,
+                                  bound.get(name), network, bound.get(name + "_cudnn_backward"))
+                     for b, u in zip(pairs, draws)]
+        secs[name], t0 = time.time() - t0, time.time()
     kernels = device_kernels(torch, lambda: disc_step_on(torch, dck, d_funit, DEV, batch,
                                                          draws[0], network=network))
 
     res = {}
+    secs["kernels"], t0 = time.time() - t0, time.time()
     for dev in (DEV, "cpu"):
         c, n = clean[:2].to(dev), noisy[:2].to(dev)
         fool = disc_wrapper(tck, d_funit, dev, network)
@@ -2409,6 +2437,7 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
         res[dev] = ({k: float(v) for k, v in m.items()},
                     [p.detach().cpu().double() for p in state.model.parameters()],
                     state.opt.hyper["learning_rate"])
+        secs[f"generator_step_{dev}"], t0 = time.time() - t0, time.time()
 
     (dr_c, df_c, rg_c, _, _), (dr_h, df_h, rg_h, _, _) = held[DEV], held["cpu"]
     ref = run["cpu_float64"]
@@ -2418,7 +2447,7 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
     cancelled = {k: g.abs() <= 1e-9 * top for k, g in zip(names, ref[0][4])}
     cancelled = {k: m for k, m in cancelled.items() if m.any()}
     d = step_vs([held[DEV]], [held["cpu"]], cancelled=cancelled)
-    own = {"adam_steps_before": age, "batches_of_2": GAN_RUN_PAIRS,
+    own = {"adam_steps_before": age, "batches_of_2": n_pairs,
            "cancelled_elements": {k: int(m.sum()) for k, m in cancelled.items()},
            "card_vs_cpu_fp32": step_vs(run["card_fp32"], run["cpu_fp32"], cancelled=cancelled),
            "card_vs_cpu_float64": step_vs(run["card_float64"], ref),
@@ -2431,12 +2460,13 @@ def gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, d_funit, steps_before=GA
     (mg_c, pg_c, glr), (mg_h, pg_h, _) = res[DEV], res["cpu"]
     g_max, g_share = param_spread(pg_c, pg_h, glr)
     rec = {"network": network, "shape": list(clean[:2].shape), "pred_shape": list(shape),
-           "disc_resumed_from": f"{os.path.basename(dck)} + {steps_before} steps on the card",
+           "disc_resumed_from": f"{os.path.basename(dck)} + {steps_before} steps on the card"
+                                    + ("" if age_cudnn else " (cuDNN off)"),
            "disc": {"loss_real": [dr_c, dr_h], "loss_fake": [df_c, df_h],
                     "ranges_cuda": rg_c, "ranges_cpu": rg_h, **d, "lr": 1e-4},
            "gen": {"metrics_cuda": mg_c, "metrics_cpu": mg_h, "param_max_abs_diff": g_max,
                    "param_share_over_lr_1pct": g_share, "lr": glr},
-           "disc_from_the_run_checkpoint": own,
+           "disc_from_the_run_checkpoint": own, "seconds": secs,
            "tolerance": {"loss": GAN_LOSS_TOL, "bn_stat_rel": GAN_BN_TOL, "param_max": "lr",
                          "param_share_over_lr_1pct": TRAIN_PARAM_SHARE,
                          "run_checkpoint_conv_error_over_bound": GAN_CONV_BOUND,
@@ -3294,51 +3324,49 @@ def phase_hul_gen_train(torch, card, tmp, kernel_mods, funit=32, batch=12):
 # crop of that image whose interior (22 px in from each side) the card's
 # whole-image output must match; in train mode, where the batch's statistics
 # couple the images, both devices run the first ZOO_CPU_TRAIN images cut to
-# ZOO_TRAIN_HW px.
+# ZOO_TRAIN_HW px. Four, not two, and running stats calibrated on the whole
+# batch of 8: a BatchNorm over two values a channel (HunNet's 1 x 1 bottom)
+# reads an fp32 forward 7-9e-5 from float64 on the card, four and eight 3-4e-6
+# on the CPU.
 ZOO_TOL = 1e-4
-ZOO_CPU_EVAL, ZOO_CPU_TRAIN, ZOO_TRAIN_HW = 1, 2, 128
+ZOO_CPU_EVAL, ZOO_CPU_TRAIN, ZOO_TRAIN_HW = 1, 4, 128
 # (network, its constructor arguments, the input of the card's forward, the
-# eval reference's crop and its margin or None); RedCNN's 27 VALID 5x5 convs
-# take 108 px off a side before its decoder puts them back: at 256 px one
-# image is 1.8 TFLOP, 40 s of the CPU's float64, so it runs at 128
+# eval reference's crop and its margin or None, the train-mode input's size);
+# RedCNN's 27 VALID 5x5 convs take 108 px off a side before its decoder puts
+# them back: at 256 px one image is 1.8 TFLOP, 40 s of the CPU's float64, so
+# it runs at 128
 ZOO_NETS = (
-    ("DnCNN", {"depth": 22, "n_channels": 64}, (8, 3, 256, 256), (96, 22)),
-    ("RedCNN", {"n_channels": 128, "depth": 30}, (8, 3, 128, 128), None),
+    ("DnCNN", {"depth": 22, "n_channels": 64}, (8, 3, 256, 256), (96, 22), ZOO_TRAIN_HW),
+    ("RedCNN", {"n_channels": 128, "depth": 30}, (8, 3, 128, 128), None, ZOO_TRAIN_HW),
     ("ResnetGenerator", {"ngf": 64, "n_blocks": 9, "norm_type": "batch"}, (8, 3, 256, 256),
-     None),
-    ("PatchGAN", {"ndf": 64, "n_layers": 3}, (8, 6, 256, 256), None),
-    ("PixelDiscriminator", {"ndf": 64}, (8, 6, 256, 256), None),
-    ("MultiscaleDiscriminator", {"ndf": 64, "num_D": 3}, (8, 6, 256, 256), None),
+     None, ZOO_TRAIN_HW),
+    ("PatchGAN", {"ndf": 64, "n_layers": 3}, (8, 6, 256, 256), None, ZOO_TRAIN_HW),
+    ("PixelDiscriminator", {"ndf": 64}, (8, 6, 256, 256), None, ZOO_TRAIN_HW),
+    ("MultiscaleDiscriminator", {"ndf": 64, "num_D": 3}, (8, 6, 256, 256), None, ZOO_TRAIN_HW),
 )
 
 
 def calibrate_bn(torch, model, x):
-    """Set ``model``'s running stats to the statistics of one train-mode
-    forward of ``x`` (as a trained network's match its activations; random
-    stats let the ResnetGenerator's blocks grow until tanh saturates, an
-    ill-conditioned eval forward). Returns the model in eval mode."""
+    """Set ``model``'s running stats to the statistics of one forward of
+    ``x`` with its BatchNorms in train mode (as a trained network's match
+    its activations; random stats let the ResnetGenerator's blocks grow
+    until tanh saturates, an ill-conditioned eval forward): the mean of the
+    statistics of a BatchNorm's every use (RedishCNN's one BatchNorm serves
+    48; the others one). Only the BatchNorms leave eval mode, so a network
+    that refuses a train-mode forward (MobileNetV3) calibrates too. Returns
+    the model in eval mode."""
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     keep = [m.momentum for m in bns]
+    model.eval()
     for m in bns:
-        m.momentum = 1.0
+        m.reset_running_stats()
+        m.momentum = None  # a cumulative mean
+        m.train()
     with torch.no_grad():
-        model.train()(x)
+        model(x)
     for m, k in zip(bns, keep):
         m.momentum = k
     return model.eval()
-
-
-def zoo_forward(torch, model, x, train):
-    """``model`` in train or eval mode on ``x`` without autograd or TF32:
-    (its outputs as a list, its BN running stats by name), on the CPU."""
-    from nind_denoise_tpu_torch.engine.tile_engine import _tf32
-
-    with torch.no_grad(), _tf32(False):
-        y = model.train(train)(x)
-    ys = y if isinstance(y, list) else [y]
-    stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
-             if k.endswith(("running_mean", "running_var"))}
-    return [t.detach().cpu().double() for t in ys], stats
 
 
 def rel_err(got, ref):
@@ -3349,16 +3377,77 @@ def rel_err(got, ref):
                for g, r in zip(got, ref)) if ref else 0.0
 
 
-def phase_zoo(torch, card):
-    """Every network of the legacy and pix2pix zoo at full width, seeded
-    weights with calibrated BatchNorm stats (``calibrate_bn``): the card's
-    eval forward at the batch of ``ZOO_NETS`` (warm ms a forward, its FLOP
-    count and bound), its first ``ZOO_CPU_EVAL`` images (or the interior of
-    a crop's) against the CPU's float64 forward of them; with BatchNorm, a
-    train-mode forward of ``ZOO_CPU_TRAIN`` images cut to ``ZOO_TRAIN_HW``
-    px on each device, outputs and new running stats against float64; each
-    within ZOO_TOL, which the CPU's fp32 forward must meet too."""
+ZOO_CPU_WORKERS = 4  # threads for the CPU references (float64's slow paths use ~3 of 8 cores)
+
+
+def zoo_forward(torch, model, x, train, tf32_off=True):
+    """``model`` in train or eval mode on ``x`` without autograd (nor TF32,
+    unless ``tf32_off`` is False: the switch is process-wide, so a CPU
+    forward in a worker thread leaves it alone): (its outputs as a list, its
+    BN running stats by name), on the CPU."""
+    from nind_denoise_tpu_torch.engine.tile_engine import _tf32
+
+    with torch.no_grad(), (_tf32(False) if tf32_off else contextlib.nullcontext()):
+        y = model.train(train)(x)
+    ys = y if isinstance(y, list) else [y]
+    stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return [t.detach().cpu().double() for t in ys], stats
+
+
+def depthwise_taps(torch, model):
+    """``model`` with every depthwise conv computed as a sum of its k x k
+    shifted, strided slices (torch's float64 CPU conv runs a depthwise conv
+    one group at a time: MobileNetV3's forward takes minutes that way, 8 s
+    this way); the same function, in place. Other modules are untouched."""
+    import torch.nn.functional as F
+
+    class Taps(torch.nn.Module):
+        def __init__(self, conv):
+            super().__init__()
+            self.conv = conv
+
+        def forward(self, x):
+            c = self.conv
+            (k, _), (d, _), (s, _), (p, _) = c.kernel_size, c.dilation, c.stride, c.padding
+            xp = F.pad(x, (p, p, p, p))
+            ho = (xp.shape[2] - d * (k - 1) - 1) // s + 1
+            wo = (xp.shape[3] - d * (k - 1) - 1) // s + 1
+            out = 0
+            for i in range(k):
+                for j in range(k):
+                    out = out + c.weight[:, 0, i, j].view(1, -1, 1, 1) * xp[
+                        :, :, i * d:i * d + s * (ho - 1) + 1:s, j * d:j * d + s * (wo - 1) + 1:s]
+            return out if c.bias is None else out + c.bias.view(1, -1, 1, 1)
+
+    for name, child in model.named_children():
+        if isinstance(child, torch.nn.Conv2d) and 1 < child.groups == child.in_channels:
+            setattr(model, name, Taps(child))
+        else:
+            depthwise_taps(torch, child)
+    return model
+
+
+def nets_vs_float64(torch, nets, seed, tol=ZOO_TOL, cpu_fp32=True):
+    """Each network of ``nets`` ((network, constructor arguments, the card's
+    input shape, the eval reference's crop and its margin or None, the
+    train-mode input's size or None) at full width, seeded weights with
+    calibrated BatchNorm stats (``calibrate_bn`` on the card, on a batch
+    of the train size, or of the input's): the card's eval forward at the
+    given batch (warm ms a forward, its FLOP count and bound), its first
+    ``ZOO_CPU_EVAL`` images (or the interior of a crop's) against the CPU's
+    float64 forward of them; with BatchNorm, a train-mode forward of
+    ``ZOO_CPU_TRAIN`` images of the train size (cut from the batch where it
+    is smaller than the input, else drawn) on each device, outputs and new
+    running stats against float64; each within ``tol``, which the CPU's
+    fp32 forward must meet too where ``cpu_fp32``. A network of
+    ``EVAL_ONLY`` runs no train-mode forward: it must raise
+    NotImplementedError on the card. The CPU forwards run on
+    ``ZOO_CPU_WORKERS`` threads beside the card's. Returns the records by
+    label (the network, and each constructor flag set), and the seconds of
+    the whole and of the CPU's wait after the card's last forward."""
     import copy
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     from torch.utils.flop_counter import FlopCounterMode
@@ -3367,81 +3456,185 @@ def phase_zoo(torch, card):
     from nind_denoise_tpu_torch.models import build
     from nind_denoise_tpu_torch.tools import fixtures
 
+    def on_cpu(model, x, train, wide):
+        m = depthwise_taps(torch, copy.deepcopy(model)).double() if wide else copy.deepcopy(model)
+        return pool.submit(zoo_forward, torch, m, x.double() if wide else x, train, False)
+
+    recs, pending = {}, []
     t0 = time.time()
-    recs = {}
-    for i, (network, kw, shape, crop) in enumerate(ZOO_NETS):
-        t1 = time.time()
-        rng = np.random.default_rng(40 + i)
-        model = fixtures.seed_zoo_module(build(network, **kw), 30 + i).eval()
-        has_bn = any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
-        if has_bn:
-            calibrate_bn(torch, model, torch.from_numpy(
-                rng.random((2, shape[1], 128, 128), np.float32)))
-        x = torch.from_numpy(rng.random(shape, np.float32))
-        card_model = copy.deepcopy(model).to(DEV).eval()
-        xd = x.to(DEV)
-        got, _ = zoo_forward(torch, card_model, xd, False)
+    with ThreadPoolExecutor(ZOO_CPU_WORKERS) as pool:
+        for i, (network, kw, shape, crop, train_size) in enumerate(nets):
+            t1 = time.time()
+            label = network + "".join(f"/{k}" for k, v in kw.items() if v is True)
+            rng = np.random.default_rng(seed + 10 + i)
+            model = fixtures.seed_zoo_module(build(network, **kw), seed + i).eval()
+            has_bn = any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
+            if has_bn:
+                ch, cw = (train_size, train_size) if train_size else shape[2:]
+                calib = torch.from_numpy(rng.random((shape[0], shape[1], ch, cw), np.float32))
+                model.load_state_dict(calibrate_bn(torch, copy.deepcopy(model).to(DEV),
+                                                   calib.to(DEV)).state_dict())
+            x = torch.from_numpy(rng.random(shape, np.float32))
+            card_model = copy.deepcopy(model).to(DEV).eval()
+            xd = x.to(DEV)
+            got, _ = zoo_forward(torch, card_model, xd, False)
 
-        def fwd():
-            with torch.no_grad(), _tf32(False):
-                return card_model(xd)
+            def fwd():
+                with torch.no_grad(), _tf32(False):
+                    return card_model(xd)
 
-        ms = time_ms(torch, fwd, 3)
-        with FlopCounterMode(display=False) as fc:
-            fwd()
-        flops = fc.get_total_flops()
-        nbytes = 4 * (x.numel() + sum(t.numel() for t in got)
-                      + sum(p.numel() for p in model.parameters()))
-        bound, by = bound_ms(nbytes, flops, "float32")
-        k = ZOO_CPU_EVAL
+            ms = time_ms(torch, fwd, 3)
+            with FlopCounterMode(display=False) as fc:
+                fwd()
+            flops = fc.get_total_flops()
+            nbytes = 4 * (x.numel() + sum(t.numel() for t in got)
+                          + sum(p.numel() for p in model.parameters()))
+            bound, by = bound_ms(nbytes, flops, "float32")
+            xe, card_e = x[:ZOO_CPU_EVAL], [g[:ZOO_CPU_EVAL] for g in got]
+            if crop is not None:  # the interior of a crop, whose pixels see no padding
+                size, m = crop
+                r = (shape[2] - size) // 2
+                xe = xe[:, :, r:r + size, r:r + size]
+                card_e = [g[:, :, r + m:r + size - m, r + m:r + size - m] for g in card_e]
+            cpu = {"eval": (on_cpu(model, xe, False, True),
+                            on_cpu(model, xe, False, False) if cpu_fp32 else None)}
+            card = {"eval": (card_e, None)}
+            extra = {}
+            if network in EVAL_ONLY:
+                try:
+                    zoo_forward(torch, card_model, xd[:1], True)
+                    raised = False
+                except NotImplementedError:
+                    raised = True
+                extra["train_mode_raises"] = raised
+                check(raised, f"{label}: a train-mode forward ran on the card")
+            elif has_bn:
+                t = train_size or shape[2]
+                xt = x[:ZOO_CPU_TRAIN, :, :t, :t] if t <= shape[2] else torch.from_numpy(
+                    rng.random((ZOO_CPU_TRAIN, shape[1], t, t), np.float32))
+                cpu["train"] = (on_cpu(model, xt, True, True),
+                                on_cpu(model, xt, True, False) if cpu_fp32 else None)
+                card["train"] = zoo_forward(torch, copy.deepcopy(model).to(DEV), xt.to(DEV), True)
+                extra["train_input"] = list(xt.shape)
+            recs[label] = {"input": list(shape), **kw, "eval_crop": crop, "ms": ms,
+                           "tflop": flops / 1e12, "build_and_card_s": time.time() - t1,
+                           "bound_ms": bound, "bound_by": by, "ms_over_bound": ms / bound,
+                           **extra, "output_shapes": [list(t.shape) for t in got]}
+            pending.append((label, crop, cpu, card))
+            del card_model, xd, got
         t2 = time.time()
-        xe, card_e = x[:k], [g[:k] for g in got]
-        if crop is not None:  # the interior of a crop, whose pixels see no padding
-            size, m = crop
-            r = (shape[2] - size) // 2
-            xe = xe[:, :, r:r + size, r:r + size]
-            card_e = [g[:, :, r + m:r + size - m, r + m:r + size - m] for g in card_e]
-        ref, _ = zoo_forward(torch, copy.deepcopy(model).double(), xe.double(), False)
-        cpu, _ = zoo_forward(torch, copy.deepcopy(model), xe, False)
-        if crop is not None:
-            ref, cpu = ([t[:, :, m:size - m, m:size - m] for t in ts] for ts in (ref, cpu))
-        err = {"eval": {"cuda": rel_err(card_e, ref), "cpu_fp32": rel_err(cpu, ref)}}
-        if has_bn:
-            xt = x[:ZOO_CPU_TRAIN, :, :ZOO_TRAIN_HW, :ZOO_TRAIN_HW]
-            ref, ref_stats = zoo_forward(torch, copy.deepcopy(model).double(), xt.double(), True)
-            runs = {"cuda": zoo_forward(torch, copy.deepcopy(model).to(DEV), xt.to(DEV), True),
-                    "cpu_fp32": zoo_forward(torch, copy.deepcopy(model), xt, True)}
-            err["train"] = {dev: rel_err(out, ref) for dev, (out, _) in runs.items()}
-            err["train_bn_stats"] = {dev: rel_err(st, ref_stats) for dev, (_, st) in runs.items()}
-        worst = max(v for e in err.values() for v in e.values())
-        recs[network] = {"input": list(shape), **kw, "eval_crop": crop, "ms": ms,
-                         "tflop": flops / 1e12, "build_and_card_s": t2 - t1,
-                         "cpu_reference_s": time.time() - t2,
-                         "bound_ms": bound, "bound_by": by, "ms_over_bound": ms / bound,
-                         "rel_err_vs_float64": err, "output_shapes": [list(t.shape) for t in got]}
-        check(all(math.isfinite(v) for e in err.values() for v in e.values()) and worst <= ZOO_TOL,
-              f"zoo: {network} against float64: {recs[network]}")
-        del card_model, xd, got
+        for label, crop, cpu, card in pending:
+            err = {}
+            for mode, (ref_f, fp32_f) in cpu.items():
+                (ref, ref_stats), runs = ref_f.result(), {"cuda": card[mode]}
+                if fp32_f is not None:
+                    runs["cpu_fp32"] = fp32_f.result()
+                if crop is not None and mode == "eval":
+                    size, m = crop
+                    ref = [t[:, :, m:size - m, m:size - m] for t in ref]
+                    if "cpu_fp32" in runs:
+                        runs["cpu_fp32"] = ([t[:, :, m:size - m, m:size - m]
+                                             for t in runs["cpu_fp32"][0]], None)
+                err[mode] = {dev: rel_err(out, ref) for dev, (out, _) in runs.items()}
+                if mode == "train":
+                    err["train_bn_stats"] = {dev: rel_err(st, ref_stats)
+                                             for dev, (_, st) in runs.items()}
+            recs[label]["rel_err_vs_float64"] = err
+            worst = max(v for e in err.values() for v in e.values())
+            check(all(math.isfinite(v) for e in err.values() for v in e.values())
+                  and worst <= tol, f"{label} against float64: {recs[label]}")
+    return recs, {"all_s": time.time() - t0, "cpu_after_card_s": time.time() - t2}
+
+
+def phase_zoo(torch, card):
+    """Every network of the legacy and pix2pix zoo (``ZOO_NETS``) at full
+    width against float64 (``nets_vs_float64``), BatchNorm calibrated and
+    train mode at ``ZOO_TRAIN_HW`` px."""
+    t0 = time.time()
+    recs, secs = nets_vs_float64(torch, ZOO_NETS, 30)
     emit(card, phase="zoo", precision="float32, TF32 off", tolerance=ZOO_TOL,
          cpu_images={"eval": ZOO_CPU_EVAL, "train": ZOO_CPU_TRAIN, "train_hw": ZOO_TRAIN_HW},
-         nets=recs,
+         nets=recs, seconds=secs, phase_s=time.time() - t0)
+
+
+# The relic zoo and MobileNetV3 at JAX's default widths, each at its native
+# size: the Hu family 160 px, Hul128Net 128, Hul144Disc 144 with each head,
+# HunkyDisc 256, HunkyNet 224 (its train-mode forward at 256: at 224 its
+# 1 x 1 bottom normalizes two values a channel, an fp32 forward 4e-4 from
+# float64), RedishCNN 112 (at 160 one image is 479 GFLOP, ~10 s of the CPU's
+# float64), MobileNetV3 512. HulNet is Hul160Net. The CPU's float64 runs one
+# image in eval mode and 2 in train mode, at the full size.
+RELIC_NETS = (
+    ("HunNet", {"funit": 32}, (8, 3, 160, 160), None, None),
+    ("HuNet", {"funit": 32}, (8, 3, 160, 160), None, None),
+    ("Hul160Net", {"funit": 32}, (8, 3, 160, 160), None, None),
+    ("HuDisc", {"funit": 32}, (8, 3, 160, 160), None, None),
+    ("Hul128Net", {"funit": 32}, (8, 3, 128, 128), None, None),
+    ("Hul144Disc", {"funit": 32}, (8, 3, 144, 144), None, None),
+    ("Hul144Disc", {"funit": 32, "finalpool": True}, (8, 3, 144, 144), None, None),
+    ("HunkyDisc", {}, (8, 3, 256, 256), None, None),
+    ("HunkyNet", {}, (8, 3, 224, 224), None, 256),
+    ("RedishCNN", {"n_channels": 128, "depth": 30}, (8, 3, 112, 112), None, None),
+    ("MobileNetV3", {}, (8, 3, 512, 512), None, None),
+)
+EVAL_ONLY = ("MobileNetV3",)  # a train-mode forward raises, as in JAX
+# HunkyNet's 45 conv and BatchNorm layers accumulate fp32 rounding about
+# evenly, layer by layer: its train-mode forward on the card read 9.7e-5 of
+# its largest output from float64 (PERF.md §6, PR 18), at ZOO_TOL's edge;
+# the other relics read 5.1e-5 or less
+RELIC_TOL = 2e-4
+
+
+def phase_relics(torch, card):
+    """The relic zoo and MobileNetV3 (``RELIC_NETS``) against float64 as
+    zoo holds its networks (``nets_vs_float64``), BatchNorm calibrated and
+    train mode at each net's native size (HunkyNet's at 256 px), no CPU
+    fp32 forward (the float64 references are the phase's cost)."""
+    t0 = time.time()
+    recs, secs = nets_vs_float64(torch, RELIC_NETS, 60, RELIC_TOL, cpu_fp32=False)
+    emit(card, phase="relics", precision="float32, TF32 off", tolerance=RELIC_TOL,
+         cpu_images={"eval": ZOO_CPU_EVAL, "train": ZOO_CPU_TRAIN}, nets=recs, seconds=secs,
          phase_s=time.time() - t0)
 
 
-def phase_zoo_gan(torch, card, tmp, kernel_mods, batch=30, cs=184, extra=()):
-    """The cGAN with the pix2pix critics: ``train.loop`` with
+# (D1, D2): each network and the constructor arguments its checkpoint must
+# read back (6 channels, conditional; the pix2pix critics at ndf 64 whatever
+# --d_funit says, the relic critics at --d_funit 32)
+ZOO_GAN_CRITICS = (("PatchGAN", {"input_nc": 6, "ndf": 64}),
+                   ("PixelDiscriminator", {"input_nc": 6, "ndf": 64}))
+RELIC_GAN_CRITICS = (("HuDisc", {"input_channels": 6, "funit": 32}),
+                     ("Hul144Disc", {"input_channels": 6, "funit": 32}))
+# relic_gan times and holds Hul144Disc (D2, both heads, the unused one's
+# gradient 0). A Hul144Disc step takes ~0.8 s at batch 30 or 2 (cuDNN's FFT
+# convs): the held check ages the run's checkpoint its 200 steps with cuDNN
+# off (~10 s; a younger Adam state turns more fp32 gradient noise into
+# parameter differences, and 20 steps left too many elements over 1 % of lr
+# apart, PERF.md §6), steps one batch of 2 from the run's checkpoint, and
+# the step times take 2 repetitions, not 5.
+RELIC_GAN = {"critics": RELIC_GAN_CRITICS, "held": 1, "n_pairs": 1, "age_cudnn": False,
+             "reps": 2}
+
+
+def phase_zoo_gan(torch, card, tmp, kernel_mods, batch=30, cs=184, extra=(), phase="zoo_gan",
+                  critics=ZOO_GAN_CRITICS, held=0, n_pairs=GAN_RUN_PAIRS,
+                  steps_before=GAN_DISC_STEPS, reps=5, age_cudnn=True):
+    """The cGAN with the critics ``critics`` (D1, D2; by default the pix2pix
+    critics; phase relic_gan: HuDisc and Hul144Disc): ``train.loop`` with
     ``train_conf_utnet_std.yaml`` and ``--weight_D1 0.2 --d_lr 1e-4
-    --d_network PatchGAN --weight_D2 0.2 --d2_lr 1e-4 --d2_network
-    PixelDiscriminator`` (both conditional, 6 channels, ndf 64) for two
-    epochs on the train phase's seeded crops: finite losses, both
-    checkpoints at ndf 64, K2 launched once per learn of either critic
-    (its generator forward) and once per validation pair and validation; a
-    resume from both checkpoints carrying each Adam's count and plateau
-    scheduler; warm times of a PatchGAN both-learn batch against its FLOP
-    bound (``gan_step_times``); one PatchGAN discriminator step and one
-    generator step with its D1 term on the card against the CPU
-    (``gan_card_vs_cpu``). Returns the two-epoch run's counts."""
-    from nind_denoise_tpu_torch.models import ZOO, params_io
+    --d_network <D1> --weight_D2 0.2 --d2_lr 1e-4 --d2_network <D2>``
+    (both conditional, 6 channels) for two epochs on the train phase's
+    seeded crops: finite losses, both checkpoints at their widths, K2
+    launched once per learn of either critic (its generator forward) and
+    once per validation pair and validation; a resume from both
+    checkpoints carrying each Adam's count and plateau scheduler; warm
+    times of a both-learn batch of critic ``held`` (0: D1, 1: D2) against
+    its FLOP bound (``gan_step_times``, ``reps`` calls a time); one
+    discriminator step of it and one generator step with its fooling term
+    on the card against the CPU (``gan_card_vs_cpu``, on ``n_pairs``
+    batches of 2 from the run's checkpoint trained ``steps_before`` more
+    steps, with cuDNN unless ``age_cudnn`` is False). Returns the two-epoch
+    run's counts."""
+    from nind_denoise_tpu_torch.models import get_network, params_io
     from nind_denoise_tpu_torch.train import gan, loop
 
     t0 = time.time()
@@ -3450,12 +3643,13 @@ def phase_zoo_gan(torch, card, tmp, kernel_mods, batch=30, cs=184, extra=()):
         write_train_crops(root, val, scenes=4, crops=16)
     n_val = 3
     cfg = os.path.join(ROOT, "nind_denoise_tpu_torch", "configs", "train_conf_utnet_std.yaml")
+    (d1, _), (d2, _) = critics
+    flags = ["--weight_D1", "0.2", "--d_lr", "1e-4", "--d_network", d1,
+             "--weight_D2", "0.2", "--d2_lr", "1e-4", "--d2_network", d2]
     argv = ["--config", cfg, "--train_data", root, "--validation_set_yaml", val,
-            "--test_reserve", "0", "--threads", "1", "--device", DEV, *extra,
-            "--weight_D1", "0.2", "--d_lr", "1e-4", "--d_network", "PatchGAN",
-            "--weight_D2", "0.2", "--d2_lr", "1e-4", "--d2_network", "PixelDiscriminator"]
+            "--test_reserve", "0", "--threads", "1", "--device", DEV, *extra, *flags]
     exp, launches = counted(torch, kernel_mods, lambda: cli_run(
-        loop, argv + ["--epochs", "3", "--models_dpath", os.path.join(tmp, "zoo_gan", "a")])[0])
+        loop, argv + ["--epochs", "3", "--models_dpath", os.path.join(tmp, phase, "a")])[0])
     lines = batch_lines(exp)
 
     def learns_of(lns, w):
@@ -3468,26 +3662,27 @@ def phase_zoo_gan(torch, card, tmp, kernel_mods, batch=30, cs=184, extra=()):
     g_losses = [float(v) for ln in lines for v in re.findall(r"weighted: (\S+)", ln)]
     check(all(learns.values()) and g_steps > 0 and len(g_losses) == g_steps
           and all(math.isfinite(v) for v in d_losses["D1"] + d_losses["D2"] + g_losses),
-          f"zoo_gan: losses {lines}")
+          f"{phase}: losses {lines}")
     check(launches["enc1"] == sum(learns.values()) + n_val * 3
           and sum(launches.values()) == launches["enc1"],
-          f"zoo_gan: launches {launches}, expected enc1 {learns} learns + {n_val * 3}")
+          f"{phase}: launches {launches}, expected enc1 {learns} learns + {n_val * 3}")
     gck = highest(exp, "generator")
-    cks = {"discriminator": ("PatchGAN", "D1"), "discriminator2": ("PixelDiscriminator", "D2")}
+    cks = {"discriminator": (d1, "D1"), "discriminator2": (d2, "D2")}
+    widths = dict(critics)
     trees = {name: params_io.load_npz(highest(exp, name)) for name in cks}
     for name, (net, w) in cks.items():
         sd = params_io.disc_state_dict_from_jax(net, trees[name]["params"], trees[name]["state"])
-        cfg_d = ZOO[net].config_of(sd)
-        check(cfg_d["input_nc"] == 6 and cfg_d["ndf"] == 64
+        cfg_d = get_network(net).config_of(sd)
+        check(all(cfg_d[k] == v for k, v in widths[net].items())
               and int(trees[name]["opt"][0]) == learns[w],
-              f"zoo_gan: {name} {cfg_d}, Adam count {trees[name]['opt'][0]} after {learns[w]}")
+              f"{phase}: {name} {cfg_d}, Adam count {trees[name]['opt'][0]} after {learns[w]}")
     last = params_io.load_npz(gck)["epoch"]
 
     resumed, resume_launches = counted(torch, kernel_mods, lambda: cli_run(
         loop, argv + ["--epochs", str(last + 2), "--g_model_path", gck,
                       "--d_model_path", highest(exp, "discriminator"),
                       "--d2_model_path", highest(exp, "discriminator2"),
-                      "--models_dpath", os.path.join(tmp, "zoo_gan", "b")])[0])
+                      "--models_dpath", os.path.join(tmp, phase, "b")])[0])
     r_lines = batch_lines(resumed)
     with open(os.path.join(resumed, "train.log")) as f:
         log = f.read()
@@ -3504,23 +3699,23 @@ def phase_zoo_gan(torch, card, tmp, kernel_mods, batch=30, cs=184, extra=()):
         check(int(new["opt"][0]) == int(old["opt"][0]) + r_learns[w]
               and (new["sched"]["lr"], new["sched"]["best"], new["sched"]["num_bad"])
               == (sched.lr, sched.best, sched.num_bad),
-              f"zoo_gan resume {name}: Adam count {new['opt'][0]} after {old['opt'][0]} + "
+              f"{phase} resume {name}: Adam count {new['opt'][0]} after {old['opt'][0]} + "
               f"{r_learns[w]}, scheduler {new['sched']} from {old['sched']} and {avg}")
     check(resume_launches["enc1"] == sum(r_learns.values()) + n_val * 2,
-          f"zoo_gan resume: {resume_launches}, {r_learns} learns")
+          f"{phase} resume: {resume_launches}, {r_learns} learns")
     cli_s = time.time() - t0
 
     clean, noisy = train_batch(torch, root, batch, cs)
-    dck = highest(exp, "discriminator")
+    keyword, (network, _) = list(cks)[held], critics[held]
+    dck = highest(exp, keyword)
     with cached_npz():
         t1 = time.time()
-        times = gan_step_times(torch, gck, dck, clean, noisy, 32, network="PatchGAN")
+        times = gan_step_times(torch, gck, dck, clean, noisy, 32, reps=reps, network=network)
         t2 = time.time()
-        cpu = gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, 32, network="PatchGAN",
-                              sub="zoo_gan")
+        cpu = gan_card_vs_cpu(torch, tmp, gck, dck, clean, noisy, 32, steps_before, network,
+                              phase, n_pairs, age_cudnn)
     parts_s = {"cli": cli_s, "step_times": t2 - t1, "card_vs_cpu": time.time() - t2}
-    emit(card, phase="zoo_gan", config="train_conf_utnet_std.yaml + --weight_D1 0.2 --d_lr 1e-4 "
-         "--d_network PatchGAN --weight_D2 0.2 --d2_lr 1e-4 --d2_network PixelDiscriminator",
+    emit(card, phase=phase, config="train_conf_utnet_std.yaml + " + " ".join(flags),
          batch=batch, cs=cs, validation_pairs=n_val, batches=len(lines), d_learns=learns,
          g_steps=g_steps, d_losses=d_losses, g_losses=g_losses, launches=launches,
          checkpoints=[os.path.basename(gck)] + [os.path.basename(highest(exp, n)) for n in cks],
@@ -3624,6 +3819,9 @@ def main() -> int:
         by_path["hul_gen_train"] = phase_hul_gen_train(torch, card, tmp, kernel_mods)
         phase_zoo(torch, card)
         by_path["zoo_gan"] = phase_zoo_gan(torch, card, tmp, kernel_mods)
+        phase_relics(torch, card)
+        by_path["relic_gan"] = phase_zoo_gan(torch, card, tmp, kernel_mods, phase="relic_gan",
+                                             **RELIC_GAN)
         by_path["trace"] = phase_trace(torch, card, tmp, kernel_mods, tif, ckpt)
     phase_serve_kernels(torch, card, serve_inputs, model)
 

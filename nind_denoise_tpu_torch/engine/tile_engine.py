@@ -381,7 +381,7 @@ def resolve_apply_fn(network: str, model: nn.Module,
     the rest of the zoo raises ValueError ("unsupported generator")."""
     from ..models import get_network
 
-    get_network(network)  # the relic zoo raises, naming ROADMAP item 7.3
+    get_network(network)  # an unknown name raises KeyError
     if network not in ENGINE_NETWORKS:
         raise ValueError(f"resolve_apply_fn: unsupported generator {network}")
     if compute_dtype not in _IO_DTYPES:
@@ -421,9 +421,9 @@ def _resolve_tiles(network: str, cs: Optional[int], ucs: Optional[int]):
 
 def check_engine_network(network: str, flag: str = "--network") -> None:
     """Raise before anything is loaded or written where the engine does not
-    run ``network``: the relic zoo (NotImplementedError, ROADMAP item 7.3),
-    the rest of the zoo (ValueError, as the JAX engine's
-    ``resolve_apply_fn`` raises), an unknown name (KeyError)."""
+    run ``network``: the rest of the zoo, the relics and MobileNetV3 among
+    them (ValueError, as the JAX engine's ``resolve_apply_fn`` raises), an
+    unknown name (KeyError)."""
     from ..models import get_network
 
     get_network(network)

@@ -17,9 +17,10 @@ a freshly denoised uint16 image is scored from the pixels just written
 (the same float32 tensor a decode of the file gives).
 
 Beyond the JAX flags: ``--device`` (CUDA unless ``cpu``). Networks other
-than UtNet and UNet raise ValueError, as the JAX engine does. Not ported,
-and raising ``NotImplementedError``: ``--devices`` > 1 and more than one
-process (ROADMAP queue 1 item 9), the relic zoo (item 7.3).
+than UtNet and UNet (the relics and MobileNetV3 among them) raise
+ValueError, as the JAX engine does. Not ported, and raising
+``NotImplementedError``: ``--devices`` > 1 and more than one process
+(ROADMAP queue 1 item 9).
 
     python -m nind_denoise_tpu_torch.eval.denoise_dir --model_path <run dir> \
         --noisy_dir <scenes> --result_dir <results>

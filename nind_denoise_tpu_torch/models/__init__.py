@@ -10,6 +10,10 @@ from .hul_gen import Hulb128Net, Hulbs128Net
 from .legacy import DnCNN, RedCNN
 from .p2p import (MultiscaleDiscriminator, NLayerDiscriminator, PixelDiscriminator,
                   ResnetGenerator)
+from .relics import DISCS as RELIC_DISCS
+from .relics import NETS as RELIC_NETS
+from .relics import RedishCNN
+from .third_party import MobileNetV3, deeplabv3_resnet101
 from .unet import UNet
 from .utnet import UtNet
 
@@ -24,34 +28,29 @@ ZOO = {"DnCNN": DnCNN, "RedCNN": RedCNN, "ResnetGenerator": ResnetGenerator,
 ZOO_GENERATORS = ("DnCNN", "RedCNN", "ResnetGenerator")
 ZOO_DISCS = ("NLayerDiscriminator", "PatchGAN", "PixelDiscriminator",
              "MultiscaleDiscriminator")
-# the JAX package's relic zoo and torchvision experiments, not ported yet
-NOT_PORTED = ("RedishCNN", "HunkyDisc", "HunkyNet", "HunNet", "HuNet", "HuDisc",
-              "Hul144Disc", "Hul128Net", "Hul160Net", "HulNet", "MobileNetV3",
-              "deeplabv3_resnet101")
+# the relic zoo and the torchvision experiments: registry and inference
+# networks (the relic discriminators also run in the cGAN)
+RELICS = {**RELIC_NETS, "RedishCNN": RedishCNN}
+THIRD_PARTY = {"MobileNetV3": MobileNetV3, "deeplabv3_resnet101": deeplabv3_resnet101}
 
 
 def get_network(name: str):
     """The ``nn.Module`` class of ``name``: a generator of ``GENERATORS``,
-    a network of ``ZOO``, or ``HulDisc`` for the four Hul discriminators
-    (built with ``HulDisc(name, ...)``). The relic zoo and the torchvision
-    networks raise NotImplementedError (ROADMAP item 7.3); an unknown name
-    raises KeyError, as in the JAX package."""
-    if name in GENERATORS:
-        return GENERATORS[name]
-    if name in ZOO:
-        return ZOO[name]
+    a network of ``ZOO``, ``RELICS`` or ``THIRD_PARTY``, or ``HulDisc``
+    for the four Hul discriminators (built with ``HulDisc(name, ...)``);
+    every name of the JAX package's registry. An unknown name raises
+    KeyError, as in the JAX package."""
+    for table in (GENERATORS, ZOO, RELICS, THIRD_PARTY):
+        if name in table:
+            return table[name]
     if name in HUL_DISCS:
         return HulDisc
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"network {name}: the relic zoo and the torchvision networks are not "
-            f"ported yet (ROADMAP item 7.3)")
     raise KeyError(f"unknown network {name!r}; available: "
-                   f"{sorted([*GENERATORS, *ZOO, *HUL_DISCS, *NOT_PORTED])}")
+                   f"{sorted([*GENERATORS, *ZOO, *RELICS, *THIRD_PARTY, *HUL_DISCS])}")
 
 
 def is_discriminator(name: str) -> bool:
-    return name in HUL_DISCS or name in ZOO_DISCS
+    return name in HUL_DISCS or name in ZOO_DISCS or name in RELIC_DISCS
 
 
 def build(name: str, **kwargs):

@@ -24,6 +24,13 @@ The Hul discriminators cross the same way: ``hul_state_dict_from_jax``
 rejects finalpool heads) and ``load_discriminator``; their Adam state
 is ``opt_leaves`` with ``ADAM_MOMENTS``.
 
+The relic zoo crosses by its plan tables (``relic_state_dict_from_jax`` /
+``relic_jax_from_state_dict``: per-block lists with None in the state for
+layers without BatchNorm; RedishCNN's flat tree), and MobileNetV3 between
+JAX's tree and torchvision's state_dict (``mobilenet_state_dict_from_jax``
+/ ``mobilenet_jax_from_state_dict``, the port's copy of
+``torch_import.import_mobilenetv3``).
+
 UNet crosses with its BatchNorm state (``unet_state_dict_from_jax``,
 ``torch_export.export_unet``'s mapping, and its inverse
 ``unet_jax_from_state_dict``), and so do the Hul generators
@@ -49,7 +56,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import ZOO
+from . import RELICS, ZOO
 from .unet import UNet
 from .utnet import UtNet
 
@@ -367,10 +374,10 @@ def generator_from_state_dict(sd: Dict[str, torch.Tensor], activation: str = "PR
     """The generator ``network`` built on the ``meta`` device with ``sd``'s
     tensors assigned to it (strictly), on the CPU, floating tensors in
     float32."""
-    from . import GENERATORS, ZOO_GENERATORS, get_network
+    from . import GENERATORS, THIRD_PARTY, ZOO_GENERATORS, get_network, is_discriminator
 
-    get_network(network)  # raises, naming where the network is queued
-    if network not in GENERATORS and network not in ZOO_GENERATORS:
+    cls = get_network(network)  # an unknown name raises KeyError
+    if is_discriminator(network):
         raise ValueError(f"{network} is not a generator")
     sd = {k: v.to("cpu", torch.float32).contiguous() if v.is_floating_point()
           else v.to("cpu") for k, v in sd.items()}
@@ -380,8 +387,8 @@ def generator_from_state_dict(sd: Dict[str, torch.Tensor], activation: str = "PR
         elif network == "UNet":
             model = UNet(int(sd["inc.conv.conv.0.weight"].shape[1]),
                          int(sd["outc.conv.weight"].shape[0]))
-        elif network in ZOO_GENERATORS:
-            model = ZOO[network](**ZOO[network].config_of(sd))
+        elif network in ZOO_GENERATORS or network in RELICS or network in THIRD_PARTY:
+            model = cls(**cls.config_of(sd))
         else:
             w = sd["enc128to126std.0.weight"]
             model = GENERATORS[network](int(w.shape[0]) // 2, activation, int(w.shape[1]))
@@ -399,6 +406,10 @@ def generator_state_dict_from_jax(network: str, params: Dict,
         return hul_gen_state_dict_from_jax(params, network)
     if network in ZOO:
         return zoo_state_dict_from_jax(network, params, state)
+    if network in RELICS:
+        return relic_state_dict_from_jax(network, params, state)
+    if network == "MobileNetV3":
+        return mobilenet_state_dict_from_jax(params, state)
     return state_dict_from_jax(params)
 
 
@@ -411,6 +422,10 @@ def generator_jax_from_state_dict(network: str, sd: Dict[str, Any]):
         return hul_gen_jax_from_state_dict(sd, network), None
     if network in ZOO:
         return zoo_jax_from_state_dict(network, sd)
+    if network in RELICS:
+        return relic_jax_from_state_dict(network, sd)
+    if network == "MobileNetV3":
+        return mobilenet_jax_from_state_dict(sd)
     return jax_from_state_dict(sd), None
 
 
@@ -625,7 +640,8 @@ def load_discriminator(model_path: str, network: str,
         from .hul import VARIANTS
 
         if network not in VARIANTS:
-            # the JAX package's torch_import has no mapping for the zoo
+            # the JAX package's torch_import has no mapping for the zoo or
+            # the relics
             raise NotImplementedError(f"torch import for {network}: only a .npz of "
                                       "either trainer resumes it")
         params, state = hul_jax_from_state_dict(
@@ -642,6 +658,8 @@ def disc_state_dict_from_jax(network: str, params: Dict,
 
     if network in VARIANTS:
         return hul_state_dict_from_jax(params, state, network)
+    if network in RELICS:
+        return relic_state_dict_from_jax(network, params, state)
     return zoo_state_dict_from_jax(network, params, state)
 
 
@@ -651,6 +669,8 @@ def disc_jax_from_state_dict(network: str, sd: Dict[str, Any]):
 
     if network in VARIANTS:
         return hul_jax_from_state_dict(sd, network)
+    if network in RELICS:
+        return relic_jax_from_state_dict(network, sd)
     return zoo_jax_from_state_dict(network, sd)
 
 
@@ -731,6 +751,63 @@ def zoo_config_of_jax(network: str, params: Dict) -> Dict:
     return {}
 
 
+def _bn_to_sd(sd: Dict, prefix: str, bn: Dict, st: Optional[Dict]) -> None:
+    sd[prefix + ".weight"] = _f32(bn["scale"])
+    sd[prefix + ".bias"] = _f32(bn["bias"])
+    if st is not None:
+        sd[prefix + ".running_mean"] = _f32(st["mean"])
+        sd[prefix + ".running_var"] = _f32(st["var"])
+        sd[prefix + ".num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _bn_from_sd(sd: Dict, prefix: str):
+    """(BN params, BN state or None where the dict holds no running stats)."""
+    bn = {"scale": _f32(_arr(sd[prefix + ".weight"])), "bias": _f32(_arr(sd[prefix + ".bias"]))}
+    if prefix + ".running_mean" not in sd:
+        return bn, None
+    return bn, {"mean": _f32(_arr(sd[prefix + ".running_mean"])),
+                "var": _f32(_arr(sd[prefix + ".running_var"]))}
+
+
+def _state_dict_of(slots, params: Dict, state: Optional[Dict]) -> Dict[str, torch.Tensor]:
+    """The state_dict of the JAX (params, state) that ``slots`` (kind, params
+    path, state path, module prefix) lay out; ``state`` None maps the
+    parameters alone."""
+    sd: Dict[str, np.ndarray] = {}
+    for kind, ppath, spath, prefix in slots:
+        lay = _get(params, ppath)
+        if kind == "bn":
+            _bn_to_sd(sd, prefix, lay, None if state is None else _get(state, spath))
+            continue
+        sd[prefix + ".weight"] = _WMAP[kind](lay["w"])
+        if "b" in lay:
+            sd[prefix + ".bias"] = _f32(lay["b"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _tree_of(slots, sd: Dict[str, Any]):
+    """Inverse of ``_state_dict_of``: JAX (params, state), the state None
+    where the dict holds no running stats and ``slots`` has BatchNorm sites
+    (``{}`` where it has none)."""
+    slots = list(slots)
+    stats = any(k.endswith(".running_mean") for k in sd)
+    bn_sites = any(kind == "bn" for kind, *_ in slots)
+    params: Dict = {}
+    state: Optional[Dict] = None if bn_sites and not stats else {}
+    for kind, ppath, spath, prefix in slots:
+        if kind == "bn":
+            bn, st = _bn_from_sd(sd, prefix)
+            _set(params, ppath, bn)
+            if state is not None:
+                _set(state, spath, st)
+            continue
+        lay = {"w": np.ascontiguousarray(_WMAP_INV[kind](_arr(sd[prefix + ".weight"])))}
+        if prefix + ".bias" in sd:
+            lay["b"] = _f32(_arr(sd[prefix + ".bias"]))
+        _set(params, ppath, lay)
+    return _as_lists(params), None if state is None else _as_lists(state)
+
+
 def zoo_state_dict_from_jax(network: str, params: Dict,
                             state: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """A zoo network's JAX (params, BN state) -> the port's state_dict:
@@ -738,22 +815,7 @@ def zoo_state_dict_from_jax(network: str, params: Dict,
     kernels in JAX) as ``nn.ConvTranspose2d``, BN ``scale/bias/mean/var`` as
     ``weight/bias/running_mean/running_var`` (``num_batches_tracked`` 0).
     ``state`` None maps the parameters alone (an optimizer moment)."""
-    sd: Dict[str, np.ndarray] = {}
-    for kind, ppath, spath, prefix in zoo_slots(network, zoo_config_of_jax(network, params)):
-        lay = _get(params, ppath)
-        if kind == "bn":
-            sd[prefix + ".weight"] = _f32(lay["scale"])
-            sd[prefix + ".bias"] = _f32(lay["bias"])
-            if state is not None:
-                st = _get(state, spath)
-                sd[prefix + ".running_mean"] = _f32(st["mean"])
-                sd[prefix + ".running_var"] = _f32(st["var"])
-                sd[prefix + ".num_batches_tracked"] = np.zeros((), np.int64)
-            continue
-        sd[prefix + ".weight"] = _WMAP[kind](lay["w"])
-        if "b" in lay:
-            sd[prefix + ".bias"] = _f32(lay["b"])
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    return _state_dict_of(zoo_slots(network, zoo_config_of_jax(network, params)), params, state)
 
 
 def _as_lists(tree: Any) -> Any:
@@ -771,21 +833,141 @@ def zoo_jax_from_state_dict(network: str, sd: Dict[str, Any]):
     ``zoo_state_dict_from_jax``. The state is None where the dict holds no
     running stats, and for RedCNN, which has none in JAX either; a net
     without BatchNorm sites has the JAX package's empty state ``{}``."""
-    slots = list(zoo_slots(network, ZOO[network].config_of(sd)))
+    params, state = _tree_of(zoo_slots(network, ZOO[network].config_of(sd)), sd)
+    return params, None if network == "RedCNN" else state
+
+
+# -- the relic zoo ----------------------------------------------------------------
+
+_REDISH = (("conv_first", "conv"), ("conv", "conv"), ("deconv", "tconv3"),
+           ("deconv_last", "tconv3"))
+
+
+def _relic_kind(op: str) -> str:
+    """The weight map of a relic op: a conv, the up-conv, or another
+    transposed conv (a plain conv over the flipped kernel in JAX)."""
+    return "conv" if op.startswith("c") else "up" if op == "t2s2" else "tconv3"
+
+
+def relic_state_dict_from_jax(network: str, params: Dict,
+                              state: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """A relic network's JAX (params, BN state) -> the port's state_dict,
+    walking the plan table: HWIO kernels as ``nn.Conv2d``, flipped plain-conv
+    kernels as ``nn.ConvTranspose2d`` (any k, dilation or stride), (I, 4*O)
+    up-conv matrices as the k2 s2 ``nn.ConvTranspose2d``, the scalar PReLU
+    ``a``, BN ``scale/bias/mean/var`` as ``weight/bias/running_mean/
+    running_var`` (``num_batches_tracked`` 0). ``state`` None maps the
+    parameters alone (an optimizer moment)."""
+    from .relics import layer_slots
+
+    sd: Dict[str, np.ndarray] = {}
+    if network == "RedishCNN":
+        for name, kind in _REDISH:
+            sd[name + ".weight"] = _WMAP[kind](params[name]["w"])
+            sd[name + ".bias"] = _f32(params[name]["b"])
+        _bn_to_sd(sd, "bn", params["bn"], None if state is None else state["bn"])
+    else:
+        for bname, li, spec, slots in layer_slots(RELICS[network].plan):
+            lay = params[bname][li]
+            if "conv" in slots:
+                prefix = f"{bname}.{slots['conv']}"
+                sd[prefix + ".weight"] = _WMAP[_relic_kind(spec[0])](lay["w"])
+                if "b" in lay:
+                    sd[prefix + ".bias"] = _f32(lay["b"])
+            if "a" in lay:
+                sd[f"{bname}.{slots['act']}.weight"] = _f32(lay["a"]).reshape(1)
+            if "bn" in slots:
+                _bn_to_sd(sd, f"{bname}.{slots['bn']}", lay["bn"],
+                          None if state is None else state[bname][li])
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def relic_jax_from_state_dict(network: str, sd: Dict[str, Any]):
+    """A relic state_dict -> JAX (params, state): the inverse of
+    ``relic_state_dict_from_jax``. The state is JAX's per-block lists, None
+    for a layer without BatchNorm (RedishCNN: ``{"bn": ...}``); it is None
+    where the dict holds no running stats and the network has BatchNorm
+    sites."""
+    from .relics import layer_slots
+
     stats = any(k.endswith(".running_mean") for k in sd)
-    bn_sites = any(kind == "bn" for kind, *_ in slots)
-    params: Dict = {}
-    state: Optional[Dict] = None if network == "RedCNN" or (bn_sites and not stats) else {}
-    for kind, ppath, spath, prefix in slots:
-        if kind == "bn":
-            _set(params, ppath, {"scale": _f32(_arr(sd[prefix + ".weight"])),
-                                 "bias": _f32(_arr(sd[prefix + ".bias"]))})
-            if state is not None:
-                _set(state, spath, {"mean": _f32(_arr(sd[prefix + ".running_mean"])),
-                                    "var": _f32(_arr(sd[prefix + ".running_var"]))})
-            continue
-        lay = {"w": np.ascontiguousarray(_WMAP_INV[kind](_arr(sd[prefix + ".weight"])))}
-        if prefix + ".bias" in sd:
-            lay["b"] = _f32(_arr(sd[prefix + ".bias"]))
-        _set(params, ppath, lay)
-    return _as_lists(params), state
+    if network == "RedishCNN":
+        params: Dict = {name: {"w": np.ascontiguousarray(_WMAP_INV[kind](_arr(sd[name + ".weight"]))),
+                               "b": _f32(_arr(sd[name + ".bias"]))} for name, kind in _REDISH}
+        params["bn"], st = _bn_from_sd(sd, "bn")
+        return params, ({"bn": st} if stats else None)
+    plan = RELICS[network].plan
+    bn_sites = any("bn" in slots for *_, slots in layer_slots(plan))
+    params = {b: [] for b in plan}
+    state: Optional[Dict] = {b: [] for b in plan} if stats or not bn_sites else None
+    for bname, _li, spec, slots in layer_slots(plan):
+        lay: Dict = {}
+        st = None
+        if "conv" in slots:
+            prefix = f"{bname}.{slots['conv']}"
+            lay["w"] = np.ascontiguousarray(_WMAP_INV[_relic_kind(spec[0])](
+                _arr(sd[prefix + ".weight"])))
+            if prefix + ".bias" in sd:
+                lay["b"] = _f32(_arr(sd[prefix + ".bias"]))
+        if "act" in slots and f"{bname}.{slots['act']}.weight" in sd:
+            lay["a"] = _f32(_arr(sd[f"{bname}.{slots['act']}.weight"])).reshape(())
+        if "bn" in slots:
+            lay["bn"], st = _bn_from_sd(sd, f"{bname}.{slots['bn']}")
+        params[bname].append(lay)
+        if state is not None:
+            state[bname].append(st)
+    return params, state
+
+
+# -- MobileNetV3 ------------------------------------------------------------------
+
+def mobilenet_slots():
+    """For every conv and BatchNorm of MobileNetV3: (kind, JAX params path,
+    JAX state path or None, torchvision module prefix), as ``zoo_slots``;
+    JAX keeps a stem's or the last layer's stats under ``bn``, a block's
+    under its layer's name, the head's under ``cbr``."""
+    from .third_party import LARGE_DILATED
+
+    def cbn(path, prefix, spath=None):
+        yield "conv", path, None, prefix + ".0"
+        yield "bn", path + ("bn",), spath or path, prefix + ".1"
+
+    yield from cbn(("backbone", 0), "backbone.0", ("backbone", 0, "bn"))
+    cin = 16
+    for i, (_k, exp, cout, use_se, _a, _s, _d) in enumerate(LARGE_DILATED):
+        p, j = f"backbone.{i + 1}.block", 0
+        blk = ("backbone", i + 1)
+        if exp != cin:
+            yield from cbn(blk + ("expand",), f"{p}.{j}")
+            j += 1
+        yield from cbn(blk + ("dw",), f"{p}.{j}")
+        j += 1
+        if use_se:
+            for fc in ("fc1", "fc2"):
+                yield "conv", blk + ("se", fc), None, f"{p}.{j}.{fc}"
+            j += 1
+        yield from cbn(blk + ("project",), f"{p}.{j}")
+        cin = cout
+    last = len(LARGE_DILATED) + 1
+    yield from cbn(("backbone", last), f"backbone.{last}", ("backbone", last, "bn"))
+    yield from cbn(("classifier", "cbr"), "classifier.cbr")
+    yield "conv", ("classifier", "scale"), None, "classifier.scale.1"
+    for head in ("low_classifier", "high_classifier"):
+        yield "conv", ("classifier", head), None, f"classifier.{head}"
+
+
+def mobilenet_state_dict_from_jax(params: Dict,
+                                  state: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """JAX MobileNetV3 (params, BN state) -> torchvision's state_dict
+    (``state`` None: the parameters alone)."""
+    return _state_dict_of(mobilenet_slots(), params, state)
+
+
+def mobilenet_jax_from_state_dict(sd: Dict[str, Any]):
+    """torchvision's ``lraspp_mobilenet_v3_large`` state_dict (or the
+    reference wrapper's, under ``net.``) -> JAX (params, state), as
+    ``torch_import.import_mobilenetv3`` builds them; the state None where the
+    dict holds no running stats."""
+    if any(k.startswith("net.") for k in sd):
+        sd = {k[4:]: v for k, v in sd.items() if k.startswith("net.")}
+    return _tree_of(mobilenet_slots(), sd)

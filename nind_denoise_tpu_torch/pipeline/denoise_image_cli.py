@@ -21,10 +21,10 @@ input in ``--whole_image`` mode.
 CLI writes a ``jax.profiler`` trace.
 
 The engine runs UtNet and UNet, as the JAX one does: the rest of the zoo
-raises ValueError before anything is loaded or written. Not ported, and
-raising ``NotImplementedError`` rather than being ignored: more than one
-device (``--devices`` > 1, ROADMAP queue 1 item 9) and the relic zoo
-(item 7.3).
+(the relics and MobileNetV3 among them) raises ValueError before anything
+is loaded or written. Not ported, and raising ``NotImplementedError``
+rather than being ignored: more than one device (``--devices`` > 1,
+ROADMAP queue 1 item 9).
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_image_cli \
         -i noisy.tif -o denoised.tiff --network UtNet --model_path ckpt.npz

@@ -6,17 +6,19 @@ Forward (``.pt`` -> ``.npz``): the state_dict is read with ``torch.load``
 and mapped by ``models/params_io`` to the JAX layout (HWIO kernels,
 transposed convs as plain convs over flipped kernels, (I, 4*O) up-conv
 matrices, scalar PReLU ``a``, BatchNorm ``scale/bias`` and ``mean/var``
-state). UtNet and the Hul generators write their params tree; UNet and the
-Hul discriminators a ``{"params", "state"}`` tree.
+state). UtNet and the Hul generators write their params tree; UNet, the
+Hul discriminators and MobileNetV3 (torchvision's
+``lraspp_mobilenet_v3_large`` state_dict, or the reference wrapper's under
+``net.``) a ``{"params", "state"}`` tree.
 
 Reverse (``.npz`` source): the params (and BatchNorm state, which UNet and
 the Hul discriminators need) back to the reference's state_dict layout,
 written with ``torch.save``.
 
 Both directions are exact. Networks: UtNet, UNet, Hul112Disc, Hulb112Disc,
-Hull112Disc, Hulf112Disc, Hulb128Net, Hulbs128Net. The legacy and pix2pix
-zoo has no torch mapping, as in the JAX package; MobileNetV3 is not ported
-(ROADMAP item 7.3).
+Hull112Disc, Hulf112Disc, Hulb128Net, Hulbs128Net, and MobileNetV3 forward
+only (the JAX package has no export for it). The legacy, pix2pix and relic
+zoo has no torch mapping, as in the JAX package.
 
     python -m nind_denoise_tpu_torch.tools.convert_checkpoint generator_650.pt \\
         generator_650.npz --network UtNet
@@ -39,10 +41,13 @@ HUL_DISCS = tuple(VARIANTS)
 NETWORKS = tuple(GENERATORS) + HUL_DISCS
 
 
-def _check(network: str) -> None:
+def _check(network: str, reverse: bool = False) -> None:
     if network == "MobileNetV3":
-        raise NotImplementedError(
-            "MobileNetV3 (third_party) is not ported yet (ROADMAP item 7.3)")
+        if reverse:
+            raise NotImplementedError(
+                "torch export for MobileNetV3: the reverse direction supports "
+                f"{', '.join(NETWORKS)}, as in the JAX package")
+        return
     if network not in NETWORKS:
         # the legacy and pix2pix zoo among them: the JAX package's
         # torch_import and torch_export have no mapping for it either
@@ -65,7 +70,7 @@ def convert(src: str, dst: str, network: str) -> str:
 def convert_reverse(src: str, dst: str, network: str) -> str:
     """JAX-layout ``.npz`` -> the reference's ``.pt`` state_dict; returns
     ``dst``."""
-    _check(network)
+    _check(network, reverse=True)
     tree = params_io.load_npz(src)
     params = tree["params"] if isinstance(tree, dict) and "params" in tree else tree
     state = tree.get("state") if isinstance(tree, dict) else None
@@ -89,7 +94,8 @@ def main(argv=None):
     ap.add_argument("dst", nargs="?",
                     help="output path; .npz (default) or .pt for npz->torch")
     ap.add_argument("--network", default="UtNet",
-                    help=f"architecture: one of {', '.join(NETWORKS)}")
+                    help=f"architecture: one of {', '.join(NETWORKS)}, or MobileNetV3 "
+                         "(.pt -> .npz only)")
     args = ap.parse_args(argv)
     reverse = args.src.endswith(".npz")
     dst = args.dst or os.path.splitext(args.src)[0] + (".pt" if reverse else ".npz")

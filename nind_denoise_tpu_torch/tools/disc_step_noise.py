@@ -1,6 +1,7 @@
 """How far one fp32 discriminator step lies from the same step in float64,
 on the card and on the CPU, and where the card's distance comes from: a
-conditional Hul112Disc at d_funit 32 (the trainer's default), trained N
+conditional Hul112Disc (or ``--network``) at d_funit 32 (the trainer's
+default), trained N
 steps on ``--device`` at batch 2 on seeded smooth 184 px crops (Adam, lr
 1e-4, beta1 0.75, fuzzy targets), then, for each of ``--batches`` fresh
 batches, one more step from that state several ways: float64 on
@@ -13,10 +14,13 @@ BatchNorm by its fp32 formula.
 
     python -m nind_denoise_tpu_torch.tools.disc_step_noise [--ages 3,12]
         [--batches 24] [--pool 1,3,6] [--device cuda] [--attribution]
+        [--network HuDisc]
 
 One JSON line per batch: each way's distance from the reference
 (``measures``) and, for the device's steps, how close their fp32
-convolutions come to their rounding bound (``conv_error_over_bound``).
+convolutions come to their rounding bound (``conv_error_over_bound``; for
+the card's fp32 step also with the backward passes recomputed by cuDNN,
+``card_fp32_cudnn_backward``).
 Then one line per age that pools ``--pool`` consecutive batches and gives,
 for each measure, the largest ratio of each way's distance to the CPU's
 over the windows (the smallest for the TF32 step). Adam moves an element
@@ -157,7 +161,7 @@ def _over(got, exact, mag, k, unit):
     return ((got.double() - exact).abs() / bound.clamp_min(1e-300)).max().item()
 
 
-def conv_error_over_bound(records, unit=2.0 ** -24):
+def conv_error_over_bound(records, unit=2.0 ** -24, cudnn=False):
     """How close the recorded convolutions come to the rounding bound of
     any order of summation in their precision: for each pass, the largest
     over the records and their elements of |result - float64 result| over
@@ -166,9 +170,12 @@ def conv_error_over_bound(records, unit=2.0 ** -24):
     the output the records hold (bias included); where a record holds its
     output's gradient, "input_grad" (K = Cout kh kw) and "weight_grad" (K =
     N Ho Wo) recompute the backward in the records' dtype under the
-    trainer's TF32 setting. Each pass of an fp32 convolution reads below
-    1 whatever its algorithm sums in what order; operands rounded to TF32
-    or bf16 read far above it."""
+    trainer's TF32 setting, with cuDNN off (unfolded patches and cuBLAS
+    sums) unless ``cudnn``. Each pass of an fp32 convolution that sums its
+    terms reads below 1 whatever the order; operands rounded to TF32 or
+    bf16 read far above it. cuDNN's heuristics pick FFT and Winograd
+    transforms for some backward passes (Hul144Disc's, HuDisc's): those do
+    not sum the terms, and the bound does not cover them."""
     worst = {}
     for x, w, b, stride, padding, dilation, groups, y, *dy in records:
         conv = lambda a, c, d=None: F.conv2d(a, c, d, stride, padding, dilation, groups)  # noqa: E731
@@ -180,7 +187,8 @@ def conv_error_over_bound(records, unit=2.0 ** -24):
                                 k, unit)}
         if dy:
             xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
-            with steps._tf32(False):
+            with steps._tf32(False), (contextlib.nullcontext() if cudnn
+                                      else torch.backends.cudnn.flags(enabled=False)):
                 gx, gw = torch.autograd.grad(conv(xs, ws), (xs, ws), dy[0])
             xs, ws = x64.clone().requires_grad_(), w64.clone().requires_grad_()
             ex, ew = torch.autograd.grad(conv(xs, ws), (xs, ws), dy[0].double())
@@ -194,18 +202,22 @@ def conv_error_over_bound(records, unit=2.0 ** -24):
 
 
 @contextlib.contextmanager
-def bounding_convs(bound):
+def bounding_convs(bound, cudnn_bound=None):
     """Within: the convolutions run are recorded; on leaving, the dict
     ``bound`` keeps, pass by pass, the largest ``conv_error_over_bound``
-    of them and of what it held. None: nothing is recorded."""
+    of them and of what it held, and the dict ``cudnn_bound`` (if given)
+    the same with the backward recomputed by cuDNN. None: nothing is
+    recorded."""
     if bound is None:
         yield
         return
     recs = []
     with recording_convs(recs):
         yield
-    for k, v in conv_error_over_bound(recs).items():
-        bound[k] = max(bound.get(k, 0.0), v)
+    for into, cudnn in ((bound, False), (cudnn_bound, True)):
+        if into is not None:
+            for k, v in conv_error_over_bound(recs, cudnn=cudnn).items():
+                into[k] = max(into.get(k, 0.0), v)
 
 
 @contextlib.contextmanager
@@ -223,22 +235,25 @@ def planted_tf32(on=True):
 
 
 def step_once(d, batch, draws, device, dtype=torch.float32, cudnn=True, tf32=False, op=None,
-              bound=None):
+              bound=None, cudnn_bound=None):
     """One discriminator step of a copy of ``d`` on ``device`` in ``dtype``
     (fake targets noisy): its parameters after the step, the step's summed
     gradients, float64 on the CPU, and its two losses; its convolutions
-    held to their rounding bound into the dict ``bound`` (``bounding_convs``)."""
+    held to their rounding bound into the dicts ``bound`` and
+    ``cudnn_bound`` (``bounding_convs``)."""
     x = copy_as(d, dtype, device)
     grads, opt_step = [], x.optimizer.step
 
     def spy():  # the summed gradients, which the step frees after the update
-        grads.extend(p.grad.detach().cpu().double() for p in x.optimizer.params)
+        grads.extend(p.grad.detach().cpu().double() if p.grad is not None
+                     else torch.zeros(p.shape, dtype=torch.float64)  # a head not run
+                     for p in x.optimizer.params)
         return opt_step()
 
     x.optimizer.step = spy
     c, n, f = (t.to(device, dtype) for t in batch)
     off = contextlib.nullcontext() if cudnn else torch.backends.cudnn.flags(enabled=False)
-    with off, planted_tf32(tf32), op_as(op), bounding_convs(bound):
+    with off, planted_tf32(tf32), op_as(op), bounding_convs(bound, cudnn_bound):
         losses = x._step(c, f, n, True, draws=tuple(t.to(device, dtype) for t in draws))[:2]
     return ([p.detach().cpu().double() for p in x.model.parameters()], grads,
             [float(v) for v in losses])
@@ -294,6 +309,7 @@ def main(argv=None):
     p.add_argument("--batches", type=int, default=24)
     p.add_argument("--pool", default="1,3,6")
     p.add_argument("--d_funit", type=int, default=32)
+    p.add_argument("--network", default="Hul112Disc", help="the discriminator")
     p.add_argument("--device", default="cuda")
     p.add_argument("--attribution", action="store_true",
                    help="also the card's step with one op class in float64 and "
@@ -303,7 +319,7 @@ def main(argv=None):
     dev = args.device
     rng = np.random.default_rng(0)
     d = gan.DiscriminatorWrapper(types.SimpleNamespace(beta1=0.75, models_dpath=None),
-                                 "Hul112Disc", args.d_funit, LR, True, seed=1, device=dev)
+                                 args.network, args.d_funit, LR, True, seed=1, device=dev)
     age = 0
     for target in sorted(int(a) for a in args.ages.split(",")):
         while age < target:
@@ -321,16 +337,21 @@ def main(argv=None):
                 t0 = time.perf_counter()
                 if op is None and not on_cpu:
                     bound[way] = {}
+                if way == "card_fp32":  # the backward by cuDNN's algorithms, not held
+                    bound["card_fp32_cudnn_backward"] = {}
                 row[way] = spread(step_once(d, batch, draws, "cpu" if on_cpu else dev,
                                             cudnn=cudnn, tf32=tf32, op=op,
-                                            bound=bound.get(way)), ref)
+                                            bound=bound.get(way),
+                                            cudnn_bound=bound.get(way + "_cudnn_backward")),
+                                  ref)
                 secs[way] = time.perf_counter() - t0
             rows.append(row)
             bounds.append(bound)
             print(json.dumps({"adam_steps_before": age, "batch": b, "seconds": secs,
                               "conv_error_over_bound": bound,
                               **{way: measures([s]) for way, s in row.items()}}), flush=True)
-        print(json.dumps({"adam_steps_before": age, "d_funit": args.d_funit, "batch_size": 2,
+        print(json.dumps({"adam_steps_before": age, "network": args.network,
+                          "d_funit": args.d_funit, "batch_size": 2,
                           "cs": 184, "device": dev, "batches": args.batches,
                           "cpu_threads": torch.get_num_threads(),
                           "conv_error_over_bound": {  # the largest, the TF32 step's least

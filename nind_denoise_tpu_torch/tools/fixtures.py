@@ -7,8 +7,8 @@ tests and chip_smoke.py.
 ``write_unet_checkpoint`` a UNet with its BatchNorm state and
 ``write_hul_gen_checkpoint`` a Hul generator, likewise (``unet_tree`` and
 ``hul_gen_params`` give their trees); ``seed_zoo_module`` draws the
-weights (BatchNorm stats included) of a port module of the legacy or
-pix2pix zoo from a seed.
+weights (BatchNorm stats and PReLU slopes included) of a port module of
+the legacy, pix2pix or relic zoo, or of MobileNetV3, from a seed.
 ``plugin_command`` is the darktable plugin's command line, built from the
 template in its Lua source, and ``SIDECAR`` a darktable XMP sidecar with a
 history of first-stage, second-stage and unknown operations.
@@ -286,9 +286,10 @@ def _redraw_bn(rng, c: int):
 def seed_zoo_module(model, seed: int):
     """Redraw ``model``'s weights from ``seed``, in place, with numpy: conv
     kernels He-normal (std sqrt(2 / fan_in), so ReLU stacks keep their
-    scale), biases uniform(+-0.1), every BatchNorm's scale in [0.5, 1.5],
-    bias in [-0.3, 0.3], mean in [-0.2, 0.2] and var in [0.5, 1.5]. The same
-    seed gives the same weights on any device."""
+    scale), biases uniform(+-0.1), every PReLU's slope in [0, 0.3], every
+    BatchNorm's scale in [0.5, 1.5], bias in [-0.3, 0.3], mean in
+    [-0.2, 0.2] and var in [0.5, 1.5]. The same seed gives the same weights
+    on any device."""
     import torch
     from torch import nn
 
@@ -302,6 +303,8 @@ def seed_zoo_module(model, seed: int):
                 w.copy_(torch.from_numpy(rng.normal(0, math.sqrt(2.0 / fan_in), w.shape)))
                 if m.bias is not None:
                     m.bias.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, m.bias.shape)))
+            elif isinstance(m, nn.PReLU):
+                m.weight.copy_(torch.from_numpy(rng.uniform(0, 0.3, m.weight.shape)))
             elif isinstance(m, nn.BatchNorm2d):
                 for t, a in zip((m.weight, m.bias, m.running_mean, m.running_var),
                                 _redraw_bn(rng, m.num_features)):

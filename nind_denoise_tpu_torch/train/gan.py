@@ -5,9 +5,11 @@ The reference's Discriminator (nn_common.py:275-361): Hul112Disc by
 default, conditional 6-channel input, Adam without amsgrad, MSE against
 fuzzy targets, scalar loss (sqrt(fake) + sqrt(real)) / 2,
 ReduceLROnPlateau (factor 0.75, threshold 1e-8). Any discriminator of the
-registry builds here: the Hul family at ``input_channels`` and ``funit``;
-the pix2pix critics (PatchGAN, PixelDiscriminator) at their defaults, 6
-channels and ndf 64, as the JAX package's init drops both arguments.
+registry builds here: the Hul family and the relic critics (HuDisc,
+Hul144Disc, HunkyDisc, whose widths are absolute) at ``input_channels``
+and ``funit``; the pix2pix critics (PatchGAN, PixelDiscriminator) at
+their defaults, 6 channels and ndf 64, as the JAX package's init drops
+both arguments.
 Checkpoints are the JAX trainer's ``<keyword>_<epoch>.npz`` (params, BN
 state, Adam leaves, the scheduler's state): either trainer resumes from
 the other's.
@@ -20,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from ..models import HUL_DISCS, ZOO, HulDisc, build, params_io
+from ..models import HUL_DISCS, HulDisc, build, get_network, params_io
 from ..utils.device import resolve_device
 from . import steps
 
@@ -61,7 +63,8 @@ def init_disc(network: str, input_channels: int, funit: int, seed: int, sd=None)
         if network in HUL_DISCS:
             cin, f = HulDisc.shape_of(sd)
             return HulDisc(network, cin, f)
-        return ZOO[network](**ZOO[network].config_of(sd))
+        cls = get_network(network)
+        return cls(**cls.config_of(sd))
 
 
 class DiscriminatorWrapper:

@@ -18,7 +18,8 @@ output_test_images, keep_all_output_images}.
 
 ``--weight_D1``/``--weight_D2`` > 0 add the conditional discriminators
 (``train/gan.py``; ``--d_network``/``--d2_network`` one of the four Hul
-discriminators, ``NLayerDiscriminator``/``PatchGAN`` or
+discriminators, the relic critics ``HuDisc``, ``Hul144Disc`` and
+``HunkyDisc``, ``NLayerDiscriminator``/``PatchGAN`` or
 ``PixelDiscriminator``, the last two at 6 channels and ndf 64 whatever
 ``--d_funit`` says, as in JAX), scheduled against the generator by the reference's
 stochastic rule from ``random.Random(seed)``, with ``--freeze_generator``
@@ -32,9 +33,9 @@ leaves, epoch; discriminators with their BN state and plateau scheduler;
 checkpoints carry its BatchNorm state as JAX's do. Refused before
 anything is written (``check_ported``): a pix2pix critic with
 ``--not_conditional`` and ``MultiscaleDiscriminator`` (either fails at its
-first step in JAX), the registry's other generators (as in JAX), and what
-is not ported yet: the relic zoo (ROADMAP item 7.3) and multi-host runs
-(item 9).
+first step in JAX), HunkyDisc below 256 px of ``--loss_cs`` (its
+prediction map is empty there), the registry's other generators (as in
+JAX), and what is not ported yet: multi-host runs (ROADMAP item 9).
 
 UNet trains with BatchNorm in train mode (batch statistics, running stats
 updated; microbatch by microbatch under ``--grad_accum``), validates in
@@ -72,6 +73,7 @@ import yaml
 
 from ..engine.tile_engine import _tf32
 from ..models import GENERATORS, ZOO_DISCS, get_network, is_discriminator, params_io
+from ..models.relics import HunkyDisc
 from ..utils import conf, json_saver
 from ..utils.device import resolve_device
 from ..utils.log import Printer
@@ -195,19 +197,41 @@ def build_parser():
     return p
 
 
+def planned_loss_cs(args) -> Optional[int]:
+    """The loss crop size ``main`` will train at, read from the flags and the
+    dataset directory's name before the dataset loads (None where neither
+    gives one)."""
+    if args.loss_cs is not None:
+        return args.loss_cs
+    if args.min_crop_size is not None or args.cs is not None or not args.train_data:
+        return args.min_crop_size
+    try:
+        return int(os.path.basename(os.path.normpath(args.train_data[0])).split("_")[-1])
+    except ValueError:
+        return None
+
+
 def check_ported(args) -> None:
     """Refuse, before anything is written, what this port does not run:
     the pix2pix discriminators unconditional (they take 6 channels whatever
     the flags say, so such a run fails at its first step in the JAX
     package), ``MultiscaleDiscriminator`` (the step takes one prediction
-    map), a generator the reference never trains, and what is queued in
-    ROADMAP.md (the relic zoo: item 7.3; multi-host: item 9)."""
+    map), HunkyDisc below 256 px of loss crop (its prediction map is empty:
+    the JAX package's step takes the mean of no element there), a generator
+    the reference never trains, and what is queued in ROADMAP.md
+    (multi-host: item 9)."""
     for flag, weight, network, uncond in (
             ("--d_network", args.weight_D1, args.d_network, args.not_conditional),
             ("--d2_network", args.weight_D2, args.d2_network, args.not_conditional_2)):
         if not (weight or 0) > 0:
             continue
-        get_network(network)  # the relic zoo: ROADMAP item 7.3
+        get_network(network)  # an unknown name raises KeyError
+        if network == "HunkyDisc":
+            loss_cs = planned_loss_cs(args)
+            if loss_cs is not None and loss_cs < HunkyDisc.MIN_SIZE:
+                raise ValueError(
+                    f"{flag} HunkyDisc at --loss_cs {loss_cs}: its prediction map is empty "
+                    f"below {HunkyDisc.MIN_SIZE} px (five pools and its VALID convs)")
         if network == "MultiscaleDiscriminator":
             raise ValueError(
                 f"{flag} {network}: it returns one prediction map per scale, and the "
@@ -220,7 +244,7 @@ def check_ported(args) -> None:
         if not is_discriminator(network):
             raise ValueError(f"{flag} {network}: not a discriminator")
     if args.g_network not in GENERATORS:
-        get_network(args.g_network)  # the relic zoo: ROADMAP item 7.3
+        get_network(args.g_network)  # an unknown name raises KeyError
         raise SystemExit(
             f"--g_network {args.g_network}: the trainer supports "
             f"{', '.join(GENERATORS)} (the reference's trainable generators); "

@@ -169,7 +169,8 @@ def test_raw_without_darktable_raises(tmp_path, checkpoint):
     # a refused run writes no trace
     ("denoise_image", ["--network", "DnCNN", "--trace_dir", "trace"], ValueError,
      "unsupported generator"),
-    ("denoise_image", ["--network", "HuNet"], NotImplementedError, "item 7.3"),
+    # the relic zoo is in the registry, not in the engine, as in JAX
+    ("denoise_image", ["--network", "HuNet"], ValueError, "unsupported generator"),
     ("denoise", ["--devices", "2"], NotImplementedError, "item 9"),
 ])
 def test_flags_not_ported_raise(tmp_path, monkeypatch, checkpoint, cli, argv, exc, item):

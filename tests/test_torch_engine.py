@@ -96,8 +96,10 @@ def test_max_subpixels_guard(engines):
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        tte.resolve_apply_fn("HunNet", UtNet(4), device="cpu")
+    # the relic zoo and MobileNetV3 are in the registry, not in the engine, as in JAX
+    for network in ("HunNet", "MobileNetV3"):
+        with pytest.raises(ValueError, match="unsupported generator"):
+            tte.resolve_apply_fn(network, UtNet(4), device="cpu")
     # the legacy and pix2pix generators are in the registry, not in the engine
     with pytest.raises(ValueError, match="unsupported generator"):
         tte.resolve_apply_fn("DnCNN", UtNet(4), device="cpu")

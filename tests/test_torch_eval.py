@@ -237,7 +237,7 @@ def test_denoise_dir_skip_existing_decodes_and_denoises_nothing(tree, tmp_path, 
 @pytest.mark.parametrize("extra,exc,match", [
     (["--devices", "2", "--noisy_dir", "."], NotImplementedError, "item 9"),
     (["--network", "DnCNN", "--noisy_dir", "."], ValueError, "unsupported generator"),
-    (["--network", "HuNet", "--noisy_dir", "."], NotImplementedError, "item 7.3"),
+    (["--network", "HuNet", "--noisy_dir", "."], ValueError, "unsupported generator"),
     (["--noisy_dir", ".", "WORLD_SIZE=2"], NotImplementedError, "item 9"),
     (["--test_reserve"], SystemExit, "noisy_dir"),
     (["--test_reserve", "S1"], SystemExit, "orig_data"),

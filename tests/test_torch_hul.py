@@ -168,8 +168,9 @@ def test_frozen_forward_takes_batch_statistics_in_eval_mode_too(net, cin, jax_ne
 
 
 def test_get_network_names_item_7_for_the_rest_of_the_zoo():
-    """The legacy and pix2pix zoo resolves (tests/test_torch_{legacy,p2p}.py);
-    the relic zoo and the torchvision networks raise naming item 7.3."""
+    """The legacy and pix2pix zoo resolves (tests/test_torch_{legacy,p2p}.py),
+    and so do the relic zoo and the torchvision networks
+    (tests/test_torch_{relics,third_party}.py): every name of JAX's registry."""
     assert get_network("Hulf112Disc") is HulDisc
     assert get_network("UtNet").__name__ == "UtNet"
     assert get_network("UNet").__name__ == "UNet"
@@ -178,5 +179,12 @@ def test_get_network_names_item_7_for_the_rest_of_the_zoo():
                       ("PixelDiscriminator", "PixelDiscriminator"), ("DnCNN", "DnCNN")):
         assert get_network(name).__name__ == cls
     for name in ("HunkyDisc", "Hul144Disc", "MobileNetV3"):
-        with pytest.raises(NotImplementedError, match="item 7.3"):
-            get_network(name)
+        assert get_network(name).__name__ == name
+    from nind_denoise_tpu.models import get_network as jax_get_network
+
+    for name in ("RedishCNN", "HunkyDisc", "HunkyNet", "HunNet", "HuNet", "HuDisc",
+                 "Hul144Disc", "Hul128Net", "Hul160Net", "HulNet", "MobileNetV3",
+                 "deeplabv3_resnet101"):
+        assert get_network(name).__name__ == jax_get_network(name).__name__, name
+    with pytest.raises(KeyError, match="unknown network"):
+        get_network("NoSuchNet")

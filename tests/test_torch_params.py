@@ -175,7 +175,14 @@ def test_convert_checkpoint_matches_the_jax_tool(tmp_path, net):
 
 
 def test_convert_checkpoint_refuses_what_is_not_ported(tmp_path):
+    """MobileNetV3 converts forward (tests/test_torch_third_party.py holds the
+    tree to JAX's) and its reverse raises, as in JAX."""
+    from nind_denoise_tpu_torch.models import build
     from nind_denoise_tpu_torch.tools import convert_checkpoint as port_tool
 
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        port_tool.main([str(tmp_path / "m.pt"), "--network", "MobileNetV3"])
+    torch.save(build("MobileNetV3").state_dict(), str(tmp_path / "m.pt"))
+    port_tool.main([str(tmp_path / "m.pt"), "--network", "MobileNetV3"])
+    tree = params_io.load_npz(str(tmp_path / "m.npz"))
+    assert sorted(tree) == ["params", "state"] and len(tree["params"]["backbone"]) == 17
+    with pytest.raises(NotImplementedError, match="torch export for MobileNetV3"):
+        port_tool.main([str(tmp_path / "m.npz"), "--network", "MobileNetV3"])
