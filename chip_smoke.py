@@ -185,6 +185,23 @@ limit as nvidia-smi reports them):
 28. trace: ``denoise_image_cli --trace_dir`` on the 6 MP TIFF in bf16: a
    Chrome trace that names K2's kernel once per launch, and an output
    bit-equal to the same run without the trace.
+29. parallel: the multi-device engines (``nind_denoise_tpu_torch/parallel``)
+   on two devices, distinct GPUs where the machine has them and cuda:0
+   twice otherwise (a rehearsal on one card, not a scaling figure), UtNet
+   funit 64, bf16: the row-band engine on the 6 MP TIFF against one
+   engine (fp32 canvases within one bf16 ulp, bytes moved against JAX's
+   formula, wall and device ms beside the single engine's), int8_static
+   through it on a 2 MP crop (PSNR against float32 >= 42 dB after RL), the
+   batch engine on two 2 MP crops with RL sigma 1 x 10 on each device
+   (uint8 against engine + RL, 1 LSB), the pool with two replicas on 32
+   requests of four sizes (coalesced groups, uint8 against engine + RL, 1
+   LSB, req/s beside one replica), the spatial forward at 6 MP with pad 8
+   against the whole forward (one bf16 ulp) with each band's peak memory
+   against the whole forward's, the TP forward of 8 x 504^2 in fp32 with
+   TF32 off against the single forward (1e-5 relative), and
+   ``eval.denoise_dir`` as two processes (torchrun's variables, gloo) on
+   seeded 512 x 768 scenes against one process (set means to 1e-6); K1,
+   K2 and K3 launches counted on each path.
 
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
@@ -3772,6 +3789,307 @@ def phase_trace(torch, card, tmp, kernel_mods, tif, ckpt):
     return launches
 
 
+# -- the multi-device engines (phase 29) -------------------------------------------
+
+PAR_DEVICES = None  # None: two distinct GPUs where there are two, else cuda:0 twice
+PAR_HW2 = (1200, 1600)  # the int8_static and batch-engine crops, about 2 MP
+POOL_SIZES = ((480, 480), (360, 640), (200, 300), (520, 700))  # 8 requests each
+PAR_EVAL_HW = (512, 768)
+TP_TOL = 1e-5
+EVAL_2PROC_TOL = 1e-6
+EVAL_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from nind_denoise_tpu_torch.eval import denoise_dir
+from nind_denoise_tpu_torch.ops import deriche, enc1, gauss_blur, qconv, rl_fused
+mods = dict(enc1=enc1, rl_iter=rl_fused, gauss_blur=gauss_blur, qconv=qconv, deriche=deriche)
+overall = denoise_dir.main(sys.argv[2:])
+print("RESULT " + json.dumps({"overall": overall,
+                              "launches": {k: m.launches for k, m in mods.items()}}))
+"""
+
+
+def par_devices(torch):
+    if PAR_DEVICES is not None:
+        return [torch.device(d) for d in PAR_DEVICES], "as given"
+    if torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", 0), torch.device("cuda", 1)], "two distinct GPUs"
+    return [torch.device("cuda", 0)] * 2, "cuda:0 twice: a rehearsal on one card"
+
+
+def phase_parallel(torch, card, tmp, kernel_mods, tif, ckpt):
+    """Phase 29 (see the module doc). Returns the launch counts by path."""
+    import copy
+    import shutil
+    import socket
+    import threading
+
+    import numpy as np
+
+    from nind_denoise_tpu_torch.core import imgio
+    from nind_denoise_tpu_torch.core import tiles as tiles_mod
+    from nind_denoise_tpu_torch.engine import tile_engine as te
+    from nind_denoise_tpu_torch.eval import denoise_dir
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.ops import rl_deblur
+    from nind_denoise_tpu_torch.ops.qconv import calib_from_image
+    from nind_denoise_tpu_torch.parallel import (batch_engine, engine_pool, mesh, spatial,
+                                                 tensor_parallel)
+
+    t_phase = time.time()
+    devs, how = par_devices(torch)
+    d0 = devs[0]
+    names = [str(d) for d in devs]
+    model = params_io.load_generator(ckpt, "UtNet", "PReLU")
+    raw, scale = imgio.load_img_raw(tif)
+    by_path = {}
+
+    def sync():
+        for d in mesh.distinct(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def timed(fn):
+        """(result, warm wall s, device ms under the profiler) of ``fn``."""
+        fn()
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        wall = time.time() - t0
+        return out, wall, device_work(torch, fn)[0]
+
+    def u8(out01):
+        return rl_deblur.rl_to_u8_device(out01, 1.0, 10).cpu().numpy()
+
+    def peak(d, fn):
+        torch.cuda.reset_peak_memory_stats(d)
+        fn()
+        torch.cuda.synchronize(d)
+        return torch.cuda.max_memory_allocated(d)
+
+    # 1. row bands on the 6 MP TIFF against one engine
+    sharded = te.make_sharded_denoiser("UtNet", model, devs, batch_size=8,
+                                       compute_dtype="bfloat16")
+    single = te.make_engine("UtNet", model, batch_size=8, compute_dtype="bfloat16", device=d0)
+    ref, single_wall, single_ms = timed(lambda: single.denoise_raw(raw, scale))
+    got, launches = counted(torch, kernel_mods, lambda: sharded.denoise_raw(raw, scale))
+    _, wall, dev_ms = timed(lambda: sharded.denoise_raw(raw, scale))
+    plan = single.plan_for(*raw.shape[:2])
+    tpd, tpr = sharded.tiles_per_device, plan.iperhl + 1
+    want = (plan.ipervl + 1) * math.ceil(tpr / tpd)
+    check(launches["enc1"] == want and launches["rl_iter"] == 0,
+          f"parallel sharded: launches {launches}, expected {want} K2")
+    diff = float(np.abs(got - ref).max())
+    tol = bf16_ulp(float(np.abs(ref).max()))
+    check(diff <= tol, f"parallel sharded: canvas off one engine by {diff} > {tol}")
+    q16 = [np.round(np.clip(a, 0, 1) * 65535).astype(np.int64) for a in (got, ref)]
+    used = min(len(devs), plan.ipervl + 1)
+    up = (plan.ipervl * plan.stride + 504 + (used - 1) * (504 - plan.stride)) \
+        * raw.shape[1] * 3 * raw.itemsize
+    down = (plan.grid_h + (used - 1) * plan.ol) * plan.grid_w * 3 * 4
+    check((sharded.last_bytes_uploaded, sharded.last_bytes_downloaded) == (up, down),
+          f"parallel sharded: bytes {sharded.last_bytes_uploaded}, "
+          f"{sharded.last_bytes_downloaded}, JAX's formula {up}, {down}")
+    emit(card, phase="parallel", case="sharded", devices=names, devices_are=how,
+         shape=list(raw.shape), compute_dtype="bfloat16", tiles_per_device=tpd,
+         launches=launches, max_abs_diff_vs_single=diff, tol=tol,
+         max_lsb_uint16=int(np.abs(q16[0] - q16[1]).max()),
+         share_equal_uint16=float((q16[0] == q16[1]).mean()),
+         bytes_uploaded=up, bytes_downloaded=down, wall_s=wall, device_ms=dev_ms,
+         single_wall_s=single_wall, single_device_ms=single_ms)
+    by_path["parallel_sharded"] = launches
+
+    # 2. int8_static through the row bands, on a 2 MP crop
+    crop = np.ascontiguousarray(raw[:PAR_HW2[0], :PAR_HW2[1]])
+    q = te.make_sharded_denoiser("UtNet", model, devs, batch_size=8,
+                                 compute_dtype="int8_static",
+                                 calib=calib_from_image(crop, scale=scale))
+    f32 = te.make_engine("UtNet", model, batch_size=8, compute_dtype="float32",
+                         precision="float32", device=d0)
+    got_q, launches = counted(torch, kernel_mods,
+                              lambda: u8(q.denoise_raw(crop, scale, "device")))
+    db = psnr_u8(got_q, u8(f32.denoise_raw(crop, scale, "device")))
+    cplan = f32.plan_for(*PAR_HW2)
+    want = 21 * (cplan.ipervl + 1) * math.ceil((cplan.iperhl + 1) / tpd)
+    check(launches["qconv"] == want and launches["rl_iter"] == 10,
+          f"parallel int8_static: launches {launches}, expected {want} P1")
+    check(db >= 42.0, f"parallel int8_static: PSNR {db:.2f} dB against float32 < 42")
+    emit(card, phase="parallel", case="sharded_int8_static", devices=names,
+         shape=[*PAR_HW2, 3], launches=launches, psnr_db_vs_float32=db, floor_db=42.0)
+    by_path["parallel_int8_static"] = launches
+
+    # 3. the batch engine: two same-shape crops, RL on each device
+    crops = [crop, np.ascontiguousarray(raw[-PAR_HW2[0]:, -PAR_HW2[1]:])]
+    check_fn = te.size_check("UtNet")
+    batcher = batch_engine.DeviceBatchDenoiser([
+        te.TileEngine(fn, 504, 480, batch_size=tpd, compute_dtype="bfloat16",
+                      size_check=check_fn, device=d)
+        for fn, d in zip(te.replicate_apply_fn("UtNet", model, "bfloat16", devs), devs)])
+    one = te.make_engine("UtNet", model, batch_size=tpd, compute_dtype="bfloat16", device=d0)
+    post = lambda i, out: u8(out)  # noqa: E731
+    outs, launches = counted(torch, kernel_mods,
+                             lambda: batcher.denoise_batch(crops, scale, post=post))
+    refs, serial_wall, _ = timed(lambda: [u8(one.denoise_raw(c, scale, "device"))
+                                          for c in crops])
+    _, wall, _ = timed(lambda: batcher.denoise_batch(crops, scale, post=post))
+    lsb = [max_lsb(o, r) for o, r in zip(outs, refs)]
+    per_image = (cplan.ipervl + 1) * math.ceil((cplan.iperhl + 1) / tpd)
+    check(launches["enc1"] == 2 * per_image and launches["rl_iter"] == 20,
+          f"parallel batch: launches {launches}")
+    check(max(lsb) <= 1, f"parallel batch: uint8 off engine + RL by {lsb} LSB")
+    emit(card, phase="parallel", case="batch", devices=names, images=2,
+         shape=[*PAR_HW2, 3], launches=launches, max_lsb_vs_engine_rl=lsb,
+         wall_s=wall, serial_wall_s=serial_wall)
+    by_path["parallel_batch"] = launches
+
+    # 4. the pool: 32 requests of four sizes, two replicas against one
+    rng = np.random.default_rng(29)
+    reqs = [rng.integers(0, 65536, (*POOL_SIZES[i // 8], 3), dtype=np.uint16)
+            for i in range(32)]
+
+    def drive(pool):
+        res = [None] * len(reqs)
+
+        def post(engine, out01, meta):
+            return u8(out01), meta["group"], meta["device"]
+
+        def one_req(i):
+            res[i] = pool.submit_denoise(reqs[i], 65535.0, post)
+
+        threads = [threading.Thread(target=one_req, args=(i,)) for i in range(len(reqs))]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return res, time.time() - t0
+
+    pools = {k: engine_pool.EnginePool("UtNet", model, d, batch_size=8,
+                                       compute_dtype="bfloat16")
+             for k, d in (("two", devs), ("one", devs[:1]))}
+    try:
+        for p in pools.values():
+            drive(p)  # cold: cuDNN picks its algorithms for each shape
+        (res, wall2), launches = counted(torch, kernel_mods, lambda: drive(pools["two"]))
+        _, wall1 = drive(pools["one"])
+        coalesced = pools["two"].coalesced
+    finally:
+        for p in pools.values():
+            p.close()
+    alone = te.AdaptiveEngine("UtNet", model, batch_size=8, compute_dtype="bfloat16",
+                              device=d0)
+    lsb = max(max_lsb(r[0], u8(alone.denoise_raw(x, 65535.0, "device")))
+              for r, x in zip(res, reqs))
+    groups = collections.Counter(r[1] for r in res)
+    check(launches["rl_iter"] == 10 * len(reqs), f"parallel pool: launches {launches}")
+    check(any(g > 1 for g in groups), f"parallel pool: no coalesced group ({groups})")
+    check(lsb <= 1, f"parallel pool: uint8 off engine + RL by {lsb} LSB")
+    emit(card, phase="parallel", case="pool", replicas=names, requests=len(reqs),
+         sizes=[list(hw) for hw in POOL_SIZES], launches=launches,
+         group_sizes={str(k): v for k, v in sorted(groups.items())},
+         coalesced_requests=coalesced,
+         per_replica=dict(collections.Counter(r[2] for r in res)),
+         max_lsb_vs_engine_rl=lsb, req_per_s=len(reqs) / wall2,
+         one_replica_req_per_s=len(reqs) / wall1)
+    by_path["parallel_pool"] = launches
+
+    # 5. the spatial forward at 6 MP with pad 8 against the whole forward
+    img = imgio.load_img(tif)
+    whole = te.make_engine("UtNet", model, compute_dtype="bfloat16", device=d0)
+    with torch.inference_mode():
+        whole_peak = peak(d0, lambda: whole.denoise_whole(img, pad=8))
+        ref = whole.denoise_whole(img, pad=8)
+    padded = tiles_mod.whole_image_pad(img, 8)
+    nd = spatial.device_count(padded.shape[1], len(devs))
+    fwd = spatial.SpatialShardedForward(
+        te.replicate_apply_fn("UtNet", model, "bfloat16", devs[:nd]), devs[:nd],
+        check_fn, torch.bfloat16)
+    x, bands = fwd.prepare(padded.transpose(1, 2, 0))
+    with torch.inference_mode():
+        band_peaks = [peak(devs[i], lambda i=i: fwd.run_band(x, bands[i], i))
+                      for i in range(len(bands))]
+    y, launches = counted(torch, kernel_mods, lambda: fwd(padded.transpose(1, 2, 0)))
+    got = y.transpose(2, 0, 1)[:, 8:-8, 8:-8]
+    diff, tol = float(np.abs(got - ref).max()), bf16_ulp(float(np.abs(ref).max()))
+    check(launches["enc1"] == len(bands), f"parallel spatial: launches {launches}")
+    check(diff <= tol, f"parallel spatial: off the whole forward by {diff} > {tol}")
+    check(max(band_peaks) < whole_peak,
+          f"parallel spatial: band peaks {band_peaks} not below {whole_peak}")
+    emit(card, phase="parallel", case="spatial", devices=names[:nd], shape=list(img.shape),
+         pad=8, bands=bands, launches=launches, max_abs_diff_vs_whole=diff, tol=tol,
+         band_peak_bytes=band_peaks, whole_peak_bytes=whole_peak)
+    by_path["parallel_spatial"] = launches
+
+    # 6. tensor parallel: 8 x 504^2 in fp32, TF32 off
+    gen = torch.Generator(device=d0.type).manual_seed(41)
+    xt = torch.rand(8, 3, 504, 504, device=d0, generator=gen)
+    m32 = copy.deepcopy(model).to(d0).eval()
+    tp = tensor_parallel.shard_params_tp(model, devs)
+    with te._tf32(False), torch.inference_mode():
+        ref = m32(xt)
+        got, launches = counted(torch, kernel_mods, lambda: tensor_parallel.tp_forward(tp)(xt))
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    check(launches["enc1"] == 1, f"parallel tp: launches {launches}")
+    check(rel <= TP_TOL, f"parallel tp: {rel} relative off the single forward > {TP_TOL}")
+    emit(card, phase="parallel", case="tensor_parallel", devices=names,
+         batch=[8, 504, 504], dtype="float32",
+         split_convs=sum(isinstance(m, tensor_parallel.TPConv) for m in tp.modules()),
+         launches=launches, max_rel_err=rel, tol=TP_TOL)
+    by_path["parallel_tp"] = launches
+    del tp, m32, xt, got, ref
+
+    # 7. eval.denoise_dir as two processes against one
+    scenes = os.path.join(tmp, "par_scenes")
+    write_scenes(scenes, PAR_EVAL_HW, seed=31, sets=("PA", "PB"))
+    runs = {}
+    for run in ("one", "two"):
+        d = os.path.join(tmp, "par_eval", run, "model")
+        os.makedirs(d)
+        shutil.copy(ckpt, os.path.join(d, "generator_1.npz"))
+        runs[run] = ["--model_path", os.path.join(d, "generator_1.npz"), "--noisy_dir",
+                     scenes, "--network", "UtNet", "--devices", "1", "--device", DEV,
+                     "--result_dir", os.path.join(tmp, "par_eval", run, "results")]
+    ref = denoise_dir.main(runs["one"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2")
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", EVAL_CHILD, ROOT, *runs["two"]],
+                              env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    two_wall = time.time() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            print(text[-6000:], file=sys.stderr)
+        check(p.returncode == 0, f"parallel eval: process {r} exited {p.returncode}")
+    results = [json.loads(next(line for line in t.splitlines()
+                               if line.startswith("RESULT "))[7:]) for t in texts]
+    diffs = {k: abs(results[0]["overall"][k] - ref[k]) for k in ref}
+    check(results[0]["overall"] == results[1]["overall"], "parallel eval: processes disagree")
+    check(max(diffs.values()) <= EVAL_2PROC_TOL,
+          f"parallel eval: two processes off one by {diffs} > {EVAL_2PROC_TOL}")
+    launches = {k: sum(r["launches"][k] for r in results) for k in kernel_mods}
+    check(launches["enc1"] > 0, f"parallel eval: launches {launches}")
+    emit(card, phase="parallel", case="denoise_dir_two_processes", processes=2,
+         scenes=2, images=6, shape=[*PAR_EVAL_HW, 3], launches=launches,
+         max_abs_diff_set_means=diffs, tol=EVAL_2PROC_TOL, two_process_wall_s=two_wall)
+    by_path["parallel_eval_2proc"] = launches
+    emit(card, phase="parallel", case="summary", devices=names, devices_are=how,
+         phase_s=time.time() - t_phase)
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3823,6 +4141,7 @@ def main() -> int:
         by_path["relic_gan"] = phase_zoo_gan(torch, card, tmp, kernel_mods, phase="relic_gan",
                                              **RELIC_GAN)
         by_path["trace"] = phase_trace(torch, card, tmp, kernel_mods, tif, ckpt)
+        by_path.update(phase_parallel(torch, card, tmp, kernel_mods, tif, ckpt))
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

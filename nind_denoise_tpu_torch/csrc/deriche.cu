@@ -500,15 +500,13 @@ __global__ void __launch_bounds__(MAXT, 2) deriche_kernel(const Params q) {
 template <int GH>
 cudaError_t launch(const Params& q, unsigned grid, int threads, size_t smem,
                    cudaStream_t stream) {
-  static bool attr = false;
-  if (!attr) {
-    // the largest tile: MAXT chunks, and MAXT lines of one chunk
-    const int most = MAXT * 16 + (4 * MAXT + MAXT * LP) * 4;
-    const cudaError_t e = cudaFuncSetAttribute(
-        deriche_kernel<GH>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  // every launch: a function attribute belongs to the current device, so a
+  // flag kept once per process would leave a second GPU without it
+  // (the largest tile: MAXT chunks, and MAXT lines of one chunk)
+  const int most = MAXT * 16 + (4 * MAXT + MAXT * LP) * 4;
+  const cudaError_t e = cudaFuncSetAttribute(
+      deriche_kernel<GH>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (e != cudaSuccess) return e;
   deriche_kernel<GH><<<grid, threads, smem, stream>>>(q);
   return cudaGetLastError();
 }

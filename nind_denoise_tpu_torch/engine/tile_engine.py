@@ -34,7 +34,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import os
-from typing import Optional
+import threading
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,18 +55,45 @@ ENGINE_NETWORKS = ("UtNet", "UNet")
 _IO_DTYPES = {**_DTYPES, "int8": torch.bfloat16, "int8_static": torch.bfloat16}
 
 
+_TF32_LOCK = threading.Lock()
+# the scopes open now that share one setting: how many, the setting, and
+# the switches to put back when the last of them closes
+_TF32 = {"users": 0, "allow": None, "saved": None}
+
+
+def _set_tf32(cudnn: bool, matmul: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
 @contextlib.contextmanager
 def _tf32(allow: bool):
-    """Scope cuDNN's and cuBLAS's TF32 switches to one engine call."""
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = allow
-    torch.backends.cuda.matmul.allow_tf32 = allow
+    """Scope cuDNN's and cuBLAS's TF32 switches to one engine call.
+
+    The switches are process-wide, and the engine pool runs one engine a
+    thread: overlapping scopes of one setting share it, and the switches
+    go back when the last of them closes (a scope that restored on its
+    own exit would switch them under a sibling still running). A scope of
+    another setting nests: it sets its own and puts the outer one back."""
+    with _TF32_LOCK:
+        share = _TF32["users"] > 0 and _TF32["allow"] == allow
+        if share:
+            _TF32["users"] += 1
+        else:
+            outer = dict(_TF32)
+            _TF32.update(users=1, allow=allow,
+                         saved=(torch.backends.cudnn.allow_tf32,
+                                torch.backends.cuda.matmul.allow_tf32))
+            _set_tf32(allow, allow)
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+        with _TF32_LOCK:
+            _TF32["users"] -= 1
+            if _TF32["users"] == 0:
+                _set_tf32(*_TF32["saved"])
+                if not share:
+                    _TF32.update(outer)
 
 
 def _reflect_rows(j0: int, n: int, size: int) -> np.ndarray:
@@ -207,22 +235,52 @@ class TileEngine:
         padded = self._upload_padded([raw_hwc], plan)
         canvas = torch.zeros((plan.grid_h, plan.grid_w, c), dtype=torch.float32,
                              device=self.device)
-        inv_scale = self._inv_scale(scale)
+        self._rows_into(padded, canvas, plan, 0, plan.ipervl + 1, self._inv_scale(scale),
+                        raw_hwc, scale, progress)
+        out = canvas[:h, :w]
+        return out if out_dtype == "device" else _quantize(out, out_dtype)
+
+    def _rows_into(self, padded, canvas, plan: TilePlan, r0: int, r1: int, inv_scale,
+                   raw_hwc=None, scale: float = 1.0, progress: bool = False) -> None:
+        """Tile rows [r0, r1) in batches within each row, in order, into
+        ``canvas``; ``padded`` and ``canvas`` start at the first of these
+        rows (padded and canvas rows share a tile's y origin)."""
+        y0 = r0 * plan.stride
         tiles_per_row = plan.iperhl + 1
-        n_rows = plan.ipervl + 1
-        for r in range(n_rows):
+        for r in range(r0, r1):
             for b0 in range(0, tiles_per_row, self.batch_size):
                 idxs = range(r * tiles_per_row + b0,
                              r * tiles_per_row + min(b0 + self.batch_size,
                                                      tiles_per_row))
                 coords, specs = plan.tile_specs_arrays(idxs)
+                coords[:, 0] -= y0
                 self._run_batch(padded, canvas, coords, coords, specs, inv_scale)
             if self.debug_dir:
                 self._dump_debug_tiles(raw_hwc, plan, r, scale)
             if progress:
-                print(f"{r}/{n_rows}")
-        out = canvas[:h, :w]
-        return out if out_dtype == "device" else _quantize(out, out_dtype)
+                print(f"{r}/{r1}")
+
+    def denoise_rows(self, raw_hwc: np.ndarray, scale: float, plan: TilePlan,
+                     r0: int, r1: int):
+        """Tile rows [r0, r1) of ``plan`` over ``raw_hwc``: one device's row
+        band in ``parallel/sharded_engine``. Only the padded input rows
+        these tiles read travel (rows ``r0*stride`` to ``(r1-1)*stride +
+        cs``, mirrored on the host; the columns are mirrored on the device).
+        Returns (the fp32 canvas band on the device, which covers canvas
+        rows ``r0*stride`` to ``(r1-1)*stride + ucs``; the bytes uploaded).
+        Runs in the caller's scope: no inference mode or TF32 switch of its
+        own."""
+        h, w, c = raw_hwc.shape
+        self._check_subpixels(self.batch_size * self.cs * self.cs * c, "batch")
+        y0, band_h = r0 * plan.stride, (r1 - r0 - 1) * plan.stride + self.cs
+        band = np.ascontiguousarray(self._wire_dtype(
+            raw_hwc[_reflect_rows(y0 - plan.pad_top, band_h, h)]))
+        cols = torch.from_numpy(_reflect_rows(-plan.pad_left, self._padded_hw(plan)[1], w))
+        padded = _upload(band, self.device).index_select(1, cols.to(self.device))
+        canvas = torch.zeros(((r1 - r0 - 1) * plan.stride + self.ucs, plan.grid_w, c),
+                             dtype=torch.float32, device=self.device)
+        self._rows_into(padded, canvas, plan, r0, r1, self._inv_scale(scale))
+        return canvas, band.nbytes
 
     def _dump_debug_tiles(self, raw_hwc, plan: TilePlan, r: int, scale: float) -> None:
         """--debug (reference denoise_image.py:260-266): each tile of row
@@ -436,6 +494,44 @@ def size_check(network: str):
     """The architecture's tile-size validator: UtNet's ``check_cs``; None
     (any size) for UNet."""
     return check_cs if network == "UtNet" else None
+
+
+def make_sharded_denoiser(network: str, model: Optional[nn.Module], devices: Sequence,
+                          cs: Optional[int] = None, ucs: Optional[int] = None,
+                          ol: int = tiles_mod.DEFAULT_OVERLAP, batch_size: int = 8,
+                          compute_dtype: str = "bfloat16", precision: str = "default",
+                          max_subpixels: Optional[int] = None, calib=None,
+                          apply_fns: Optional[List[nn.Module]] = None):
+    """The row-band engine over ``devices`` (``parallel/sharded_engine``),
+    the counterpart of the JAX package's ``make_sharded_denoiser``: per-arch
+    tile defaults and size check, ``tiles_per_device = max(1, batch_size //
+    ndev)``, ``max_subpixels`` and ``precision`` as the single-device
+    engine honours them. ``apply_fns`` (one per listed device, from
+    ``replicate_apply_fn``) lets callers that build several tile sizes
+    share one model copy a device; else ``model`` is resolved here
+    (``calib`` as ``resolve_apply_fn``)."""
+    from ..parallel.sharded_engine import ShardedTileDenoiser
+
+    devices = [torch.device(d) for d in devices]
+    cs, ucs, check = _resolve_tiles(network, cs, ucs)
+    if apply_fns is None:
+        apply_fns = replicate_apply_fn(network, model, compute_dtype, devices, calib)
+    tpd = max(1, batch_size // len(devices))
+    return ShardedTileDenoiser([
+        TileEngine(fn, cs, ucs, ol=ol, batch_size=tpd, compute_dtype=compute_dtype,
+                   precision=precision, max_subpixels=max_subpixels, size_check=check,
+                   device=d) for fn, d in zip(apply_fns, devices)])
+
+
+def replicate_apply_fn(network: str, model: nn.Module, compute_dtype: str,
+                       devices: Sequence, calib=None) -> List[nn.Module]:
+    """``resolve_apply_fn`` once per distinct device of ``devices``; one
+    entry per listed device (a repeated device shares its copy)."""
+    from ..parallel.mesh import replicate
+
+    return replicate(lambda d: resolve_apply_fn(network, model, compute_dtype, d,
+                                                calib=calib),
+                     [torch.device(d) for d in devices])
 
 
 def make_engine(network: str, model: nn.Module, cs: Optional[int] = None,

@@ -18,9 +18,17 @@ a freshly denoised uint16 image is scored from the pixels just written
 
 Beyond the JAX flags: ``--device`` (CUDA unless ``cpu``). Networks other
 than UtNet and UNet (the relics and MobileNetV3 among them) raise
-ValueError, as the JAX engine does. Not ported, and raising
-``NotImplementedError``: ``--devices`` > 1 and more than one process
-(ROADMAP queue 1 item 9).
+ValueError, as the JAX engine does.
+
+``--devices N`` (``parallel/mesh.make_devices``; absent: every visible GPU)
+denoises each image by row bands over the devices
+(``parallel/sharded_engine.AdaptiveSharded``, a band engine per adapted
+tile size); ``--whole_image`` stays on the first device, as in JAX. Under
+torchrun's variables (``WORLD_SIZE`` > 1, ``MASTER_ADDR``/``MASTER_PORT``,
+``RANK``) each process denoises and scores every ``process_count()``-th
+image of each set; the per-set (sum, count) of the scores is all-gathered
+over ``gloo``, which is also the barrier before the first process alone
+writes the JSON files and runs the legacy scorer.
 
     python -m nind_denoise_tpu_torch.eval.denoise_dir --model_path <run dir> \
         --noisy_dir <scenes> --result_dir <results>
@@ -36,10 +44,11 @@ from typing import List
 from ..core import imgio
 from ..engine.tile_engine import AdaptiveEngine, check_engine_network, make_engine
 from ..models import params_io
+from ..parallel import mesh
+from ..parallel.sharded_engine import AdaptiveSharded
 from ..pipeline import denoise_image_cli
 from ..train.dataset import get_baseline_fpath
 from ..utils import conf, json_saver, utilities
-from ..utils.device import resolve_device
 from . import score
 
 
@@ -63,20 +72,18 @@ def build_parser():
     p.add_argument("--orig_data")
     p.add_argument("--models_dpath")
     p.add_argument("--batch_size", type=int, default=8)
-    p.add_argument("--devices", type=int,
-                   help="1 (one GPU); more is not ported yet (ROADMAP queue 1 item 9)")
+    p.add_argument("--devices", type=int, nargs="?", const=0,
+                   help="denoise each image by row bands over this many devices "
+                        "(absent or without a value: every visible GPU)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
 
+LOSS_KEYS = ("mse", "ssim", "msssim")
+
+
 def check_ported(args) -> None:
-    """Raise on a flag value or a launch the port does not run yet."""
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "more than one process is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
+    """Raise on a network the engine does not run."""
     check_engine_network(args.g_network)
 
 
@@ -91,12 +98,16 @@ def _out_fpath(save_dir: str, fn: str) -> str:
 def main(argv=None):
     from ..train.loop import get_test_reserve_list
 
+    # torchrun's variables: join the process group before any device work
+    if os.environ.get("MASTER_ADDR"):
+        mesh.init_distributed()
     args = build_parser().parse_known_args_layered(argv)[0]
     if args.model_path is None:
         raise SystemExit("--model_path is required")
     denoise_image_cli.autodetect_network_cs_ucs(args)
     check_ported(args)
-    device = resolve_device(args.device)
+    devices = mesh.make_devices(args.devices, args.device)
+    device = devices[0]
     model_path = params_io.complete_path(args.model_path,
                                          models_dpath=args.models_dpath,
                                          keyword="generator")
@@ -134,11 +145,19 @@ def main(argv=None):
         engine = make_engine(args.g_network, model, cs=args.cs, ucs=args.ucs,
                              batch_size=args.batch_size,
                              max_subpixels=args.max_subpixels, device=device)
+    elif len(devices) > 1:
+        engine = AdaptiveSharded(args.g_network, model, devices, cs=args.cs, ucs=args.ucs,
+                                 batch_size=args.batch_size,
+                                 max_subpixels=args.max_subpixels)
     else:
         engine = AdaptiveEngine(args.g_network, model, cs=args.cs, ucs=args.ucs,
                                 batch_size=args.batch_size,
                                 max_subpixels=args.max_subpixels, device=device)
 
+    pcount, pidx = mesh.process_count(), mesh.process_index()
+    if pcount > 1:
+        print(f"{pcount} processes: process {pidx} takes every {pcount}th image "
+              f"of each set")
     losses_per_set: List[dict] = []
     # decode-ahead: the next image decodes on a worker thread while the
     # current one runs on the device
@@ -148,9 +167,10 @@ def main(argv=None):
             baseline = get_baseline_fpath(set_dir)
             base_t = None  # decoded on the set's first score
             losses_per_img = []
-            work = [fn for fn in sorted(os.listdir(set_dir))
-                    if os.path.isfile(os.path.join(set_dir, fn))
-                    and os.path.join(set_dir, fn) != baseline]
+            work = mesh.process_shard(
+                fn for fn in sorted(os.listdir(set_dir))
+                if os.path.isfile(os.path.join(set_dir, fn))
+                and os.path.join(set_dir, fn) != baseline)
             # what actually needs denoising: skipped images are not decoded
             todo = [not (args.skip_existing and os.path.isfile(_out_fpath(save_dir, fn)))
                     for fn in work]
@@ -185,10 +205,21 @@ def main(argv=None):
                 print(f"in: {in_fpath}, out: {out_fpath}, clean: {baseline}")
                 print(cur)
                 losses_per_img.append(cur)
-            if losses_per_img:
+            if pcount > 1:
+                # every process gathers every set, empty shard or not: the
+                # collective is also the barrier for this set's output files
+                tot = mesh.process_allgather(
+                    [sum(d[k] for d in losses_per_img) for k in LOSS_KEYS]
+                    + [len(losses_per_img)]).sum(axis=0)
+                if tot[-1] > 0:
+                    losses_per_set.append({k: float(tot[i] / tot[-1])
+                                           for i, k in enumerate(LOSS_KEYS)})
+            elif losses_per_img:
                 losses_per_set.append(utilities.avg_listofdicts(losses_per_img))
     overall = utilities.avg_listofdicts(losses_per_set)
     print(overall)
+    if pidx != 0:
+        return overall  # the first process writes the records (same values)
 
     # record into trainres.json (best-effort) + testres.json (denoise_dir.py:105-129)
     epoch = None

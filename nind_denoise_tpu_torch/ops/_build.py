@@ -9,7 +9,12 @@ one ``nvcc`` per source, all at once. A failed build raises; there is no
 fallback.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch, and
-``check`` raises when that is not 0.
+``check`` raises when that is not 0. A wrapper calls its entry point inside
+``on_device(tensor)``: ``ctypes`` launches on whatever device the calling
+thread has current, and torch switches devices only inside its own ops, so
+a launch for a ``cuda:1`` tensor would otherwise run with device 0 current.
+Wrappers add to their ``launches`` count under ``COUNT_LOCK`` (the engines
+of ``parallel/`` launch from one thread per device).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -94,6 +100,13 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def on_device(t):
+    """Context manager that makes ``t``'s CUDA device current."""
+    import torch
+
+    return torch.cuda.device(t.device)
 
 
 def check(err: int, what: str) -> None:

@@ -353,9 +353,10 @@ def launch(lib, x: torch.Tensor, out: torch.Tensor, axis: int, plan) -> int:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     modes = (CARRY, MAIN) if g.segments > 1 else (MAIN,)
     for mode in modes:
-        err = lib.deriche_launch(x.data_ptr(), out.data_ptr(),
-                                 None if carry is None else carry.data_ptr(), p, h, w, axis,
-                                 *g, mode, floats, len(floats), stream)
+        with _build.on_device(x):
+            err = lib.deriche_launch(x.data_ptr(), out.data_ptr(),
+                                     None if carry is None else carry.data_ptr(), p, h, w,
+                                     axis, *g, mode, floats, len(floats), stream)
         _build.check(err, "deriche")
     return len(modes)
 
@@ -381,8 +382,10 @@ def deriche_axis(x: torch.Tensor, sigma: float, axis: int,
     if out.data_ptr() == x.data_ptr():
         raise ValueError("deriche_axis: out must not alias x")
     plan = launch_plan(x.shape[axis], axis, float(sigma))
+    n = launch(_build.library("deriche", _SIG), x, out, axis, plan)
     global launches
-    launches += launch(_build.library("deriche", _SIG), x, out, axis, plan)
+    with _build.COUNT_LOCK:
+        launches += n
     return out
 
 

@@ -142,32 +142,34 @@ def enc1(x_pad, w0, b0, a0, w1, b1, a1):
     l1 = torch.empty((bsz, FUNIT, h, w), dtype=x_pad.dtype, device=dev)
     l2 = torch.empty((bsz, FUNIT, h // 2, w // 2), dtype=x_pad.dtype, device=dev)
     lib = _build.library("enc1", _SIG)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if x_pad.dtype == torch.bfloat16:
-        ws = (w0, w1, b0, b1, a0, a1)
-        if any(t.dtype != torch.bfloat16 for t in ws):
-            raise TypeError(f"enc1: bf16 input needs bf16 weights, got "
-                            f"{[t.dtype for t in ws]}")
-        if x_pad.data_ptr() % 4:
-            raise ValueError("enc1: x_pad must be 4-byte aligned")
-        w0p, b0c, b1c, a0c, a1c = (t.contiguous() for t in (w0, b0, b1, a0, a1))
-        w1p = pack_w1(w1)
-        ty, tx = tile_grid(h, w)
-        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        err = lib.enc1_bf16_launch(x_pad.data_ptr(), w0p.data_ptr(), w1p.data_ptr(),
-                                   b0c.data_ptr(), b1c.data_ptr(), a0c.data_ptr(),
-                                   a1c.data_ptr(), l1.data_ptr(), l2.data_ptr(),
-                                   bsz, h, w, ty, tx, cta_count(bsz * ty * tx, n_sms),
-                                   stream)
-    else:
-        w0f = w0.float().contiguous()
-        w1r = w1.float().permute(1, 2, 3, 0).contiguous()  # (ci, ky, kx, co)
-        ba = torch.cat([b0.float().reshape(-1), b1.float().reshape(-1),
-                        a0.float().reshape(1), a1.float().reshape(1)])
-        err = lib.enc1_f32_launch(x_pad.data_ptr(), w0f.data_ptr(), w1r.data_ptr(),
-                                  ba.data_ptr(), l1.data_ptr(), l2.data_ptr(),
-                                  bsz, h, w, stream)
+    with _build.on_device(x_pad):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if x_pad.dtype == torch.bfloat16:
+            ws = (w0, w1, b0, b1, a0, a1)
+            if any(t.dtype != torch.bfloat16 for t in ws):
+                raise TypeError(f"enc1: bf16 input needs bf16 weights, got "
+                                f"{[t.dtype for t in ws]}")
+            if x_pad.data_ptr() % 4:
+                raise ValueError("enc1: x_pad must be 4-byte aligned")
+            w0p, b0c, b1c, a0c, a1c = (t.contiguous() for t in (w0, b0, b1, a0, a1))
+            w1p = pack_w1(w1)
+            ty, tx = tile_grid(h, w)
+            n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            err = lib.enc1_bf16_launch(x_pad.data_ptr(), w0p.data_ptr(), w1p.data_ptr(),
+                                       b0c.data_ptr(), b1c.data_ptr(), a0c.data_ptr(),
+                                       a1c.data_ptr(), l1.data_ptr(), l2.data_ptr(),
+                                       bsz, h, w, ty, tx, cta_count(bsz * ty * tx, n_sms),
+                                       stream)
+        else:
+            w0f = w0.float().contiguous()
+            w1r = w1.float().permute(1, 2, 3, 0).contiguous()  # (ci, ky, kx, co)
+            ba = torch.cat([b0.float().reshape(-1), b1.float().reshape(-1),
+                            a0.float().reshape(1), a1.float().reshape(1)])
+            err = lib.enc1_f32_launch(x_pad.data_ptr(), w0f.data_ptr(), w1r.data_ptr(),
+                                      ba.data_ptr(), l1.data_ptr(), l2.data_ptr(),
+                                      bsz, h, w, stream)
     global launches
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     _build.check(err, "enc1")
     return l1, l2

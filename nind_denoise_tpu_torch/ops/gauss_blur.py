@@ -78,11 +78,13 @@ def gauss_blur(img_hwc: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
     out = torch.empty_like(img_hwc)
     tt = _device_taps(float(sigma), img_hwc.device)
     lib = _build.library("gauss_blur", _SIG)
-    err = lib.gauss_blur_launch(img_hwc.data_ptr(), out.data_ptr(), tt.data_ptr(),
-                                h, w, c, (len(taps) - 1) // 2,
-                                torch.cuda.current_stream(img_hwc.device).cuda_stream)
+    with _build.on_device(img_hwc):
+        err = lib.gauss_blur_launch(img_hwc.data_ptr(), out.data_ptr(), tt.data_ptr(),
+                                    h, w, c, (len(taps) - 1) // 2,
+                                    torch.cuda.current_stream(img_hwc.device).cuda_stream)
     global launches
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     _build.check(err, "gauss_blur")
     return out
 
@@ -115,10 +117,12 @@ def blur_planes(x: torch.Tensor, taps: torch.Tensor,
         raise ValueError("blur_planes: out must not alias x")
     p, h, w = x.shape
     lib = _build.library("gauss_blur", _SIG)
-    err = lib.gauss_blur_planes_launch(x.data_ptr(), out.data_ptr(), taps.data_ptr(),
-                                       p, h, w, r,
-                                       torch.cuda.current_stream(x.device).cuda_stream)
+    with _build.on_device(x):
+        err = lib.gauss_blur_planes_launch(x.data_ptr(), out.data_ptr(), taps.data_ptr(),
+                                           p, h, w, r,
+                                           torch.cuda.current_stream(x.device).cuda_stream)
     global launches
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     _build.check(err, "blur_planes")
     return out

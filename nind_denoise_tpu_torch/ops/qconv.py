@@ -319,14 +319,16 @@ def conv_int8(xq: torch.Tensor, wk: torch.Tensor, pads, dil: int = 1,
                 ptrs[3 + i] = t.data_ptr()
     pt, _, pl, _ = pads
     lib = _build.library("qconv", _SIG)
-    err = lib.qconv_launch(xq.data_ptr(), wk.data_ptr(), out.data_ptr(), *ptrs[:3],
-                           n, h, w, cin, ho, wo, cout, kh, kw, pt, pl, dil,
-                           int(sx is not None and sx.numel() == n and n > 1),
-                           int(sw is not None and sw.dim() == 2),
-                           _OUT_KIND[out_dtype], 1, *ptrs[3:],
-                           torch.cuda.current_stream(dev).cuda_stream)
+    with _build.on_device(xq):  # the kernel counts the current device's SMs
+        err = lib.qconv_launch(xq.data_ptr(), wk.data_ptr(), out.data_ptr(), *ptrs[:3],
+                               n, h, w, cin, ho, wo, cout, kh, kw, pt, pl, dil,
+                               int(sx is not None and sx.numel() == n and n > 1),
+                               int(sw is not None and sw.dim() == 2),
+                               _OUT_KIND[out_dtype], 1, *ptrs[3:],
+                               torch.cuda.current_stream(dev).cuda_stream)
     global launches
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     _build.check(err, "qconv")
     return out
 

@@ -83,10 +83,12 @@ def rl_iter(u: torch.Tensor, d: torch.Tensor, taps: torch.Tensor,
         raise ValueError("rl_iter: out must not alias u or d")
     p, h, w = u.shape
     lib = _build.library("rl_iter", _SIG)
-    err = lib.rl_iter_launch(u.data_ptr(), d.data_ptr(), out.data_ptr(),
-                             taps.data_ptr(), p, h, w, r,
-                             torch.cuda.current_stream(u.device).cuda_stream)
+    with _build.on_device(u):
+        err = lib.rl_iter_launch(u.data_ptr(), d.data_ptr(), out.data_ptr(),
+                                 taps.data_ptr(), p, h, w, r,
+                                 torch.cuda.current_stream(u.device).cuda_stream)
     global launches
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     _build.check(err, "rl_iter")
     return out

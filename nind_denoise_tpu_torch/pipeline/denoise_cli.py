@@ -33,10 +33,21 @@ JAX CLI's serial path does. ``--rl-impl auto|xla|pallas`` keeps the JAX
 CLI's choices: ``auto`` picks the route by sigma, psf and dt, ``xla`` the
 separable body, ``pallas`` the fused RL kernel K1, which refuses dt != 1,
 ``gmic_fast`` and radii above 32 (``ops/rl_deblur.route_for``).
-``--devices 1`` runs; more devices raise ``NotImplementedError`` (ROADMAP
-queue 1 item 9). A model table entry's ``network`` is UtNet or UNet (the
-engine's networks). The model table's download is left out: a missing
-checkpoint raises ``FileNotFoundError`` naming its path and the table's URL.
+A model table entry's ``network`` is UtNet or UNet (the engine's
+networks).
+
+``--devices N`` (``parallel/mesh.make_devices``; absent or without a value,
+every visible GPU; ``--device cpu`` gives N logical CPU devices) runs a
+directory's files that take the in-memory path over the devices
+(``denoise_dir_batch``): same-shape chunks one image a device
+(``parallel/batch_engine``) with RL on each device, a shape with few
+images by row bands over all devices (``parallel/sharded_engine``), and the
+mixed-shape stragglers one request a device through ``parallel/engine_pool``.
+With torchrun's variables (``WORLD_SIZE`` > 1) each process takes every
+``WORLD_SIZE``-th file (``parallel/mesh.process_shard``).
+
+The model table's download is left out: a missing checkpoint raises
+``FileNotFoundError`` naming its path and the table's URL.
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_cli img.tif --tiff-input -o out/
 """
@@ -113,21 +124,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="float32: no TF32 in float32 convs and matmuls")
     p.add_argument("--cs", type=int, help="Override tile size")
     p.add_argument("--ucs", type=int, help="Override useful tile size")
-    p.add_argument("--devices", type=int,
+    p.add_argument("--devices", type=int, nargs="?", const=0,
                    help="Directory mode: dispatch images one-per-device over "
                         "this many devices (parallel/batch_engine). Default: "
-                        "all visible devices when >1; 1 forces serial. The "
-                        "port runs one device: more is not ported yet "
-                        "(ROADMAP queue 1 item 9)")
+                        "all visible devices when >1; 1 forces serial")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise on a flag value the port does not run yet."""
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
 
 
 def check_good_input(path: pathlib.Path, extensions) -> bool:
@@ -380,15 +382,8 @@ def denoise_file(args, input_path: pathlib.Path,
     if not stage2_runs and not args.use_gmic and not args.debug:
         denoised01 = _denoise_to_tensor(session, mcfg, s1_fpath, args, timers)
         with timers.stage("rl+encode"):
-            if rldeblur:
-                u8 = rl_deblur.rl_to_u8_device(denoised01, sigma, iterations,
-                                               psf=args.rl_psf, impl=args.rl_impl)
-                _encode_u8(u8.cpu().numpy(), outpath, quality)
-            elif outpath.suffix.lower() == ".tiff":
-                imgio.save_img(denoised01.cpu().numpy().transpose(2, 0, 1), str(outpath))
-            else:
-                u8 = torch.round(torch.clamp(denoised01, 0, 1) * 255).to(torch.uint8)
-                _encode_u8(u8.cpu().numpy(), outpath, quality)
+            _write_host(_to_host(denoised01, args, sigma, iterations,
+                                 outpath.suffix.lower() == ".tiff"), outpath, quality)
         with timers.stage("exif"):
             exif_mod.clone_exif(s1_fpath, outpath, verbose=args.verbose)
         for f in [input_xmp.with_suffix(".s1.xmp"), input_xmp.with_suffix(".s2.xmp")]:
@@ -447,11 +442,183 @@ def denoise_file(args, input_path: pathlib.Path,
     return outpath
 
 
+def _batchable(args, f: pathlib.Path, cmd_darktable, cmd_gmic) -> bool:
+    """Whether ``f`` takes the in-memory multi-device path: the conditions
+    of ``denoise_file``'s fast path (no darktable stage 2, RL on the
+    device, no ``--debug``)."""
+    if not args.tiff_input or args.debug or (args.use_gmic and cmd_gmic):
+        return False
+    have_xmp = f.with_suffix(f.suffix + ".xmp").is_file()
+    return not (cmd_darktable is not None and have_xmp)
+
+
+def _to_host(out01: torch.Tensor, args, sigma: int, iterations: int,
+             tiff: bool) -> np.ndarray:
+    """The fast path's post on the canvas's device: RL + gmic quantize to
+    uint8, or without RL the fp32 image for a ``.tiff`` output and the
+    plain uint8 quantize otherwise."""
+    if not args.no_deblur:
+        return rl_deblur.rl_to_u8_device(out01, sigma, iterations, psf=args.rl_psf,
+                                         impl=args.rl_impl).cpu().numpy()
+    if tiff:
+        return out01.cpu().numpy()
+    return torch.round(torch.clamp(out01, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+
+
+def _write_host(arr: np.ndarray, outpath: pathlib.Path, quality: str) -> None:
+    """``_to_host``'s image to its file: uint8 encoded, fp32 as a TIFF."""
+    if arr.dtype == np.uint8:
+        _encode_u8(arr, outpath, quality)
+    else:
+        imgio.save_img(arr.transpose(2, 0, 1), str(outpath))
+
+
+def denoise_dir_batch(args, files, devices, session: Session) -> dict:
+    """Directory mode over several devices (the JAX CLI's
+    ``denoise_dir_batch``); returns {file: output path}.
+
+    Files decode one at a time into per-(shape, dtype, scale) lists; a list
+    goes out the moment it holds one image a device, through
+    ``DeviceBatchDenoiser`` with RL and the quantize on each image's device
+    and one download each. At the end, a shape left with at least half as
+    many images as devices keeps the image batcher; the rest (fewer images
+    a shape) run one request a device through ``EnginePool`` when they are
+    two or more, else by row bands over all devices. Shapes below the
+    minimum tiling take the padded forward on the first device.
+    ``int8_static`` calibrates on the synthetic set here: one model copy a
+    device serves many images (the pool's replicas recalibrate on each)."""
+    from ..core.tiles import TilingError, adapt_cs_ucs
+    from ..engine.tile_engine import (TileEngine, _resolve_tiles, make_sharded_denoiser,
+                                      replicate_apply_fn)
+    from ..parallel.batch_engine import DeviceBatchDenoiser
+    from ..parallel.engine_pool import EnginePool
+
+    config = xmp.read_config(nightmode=args.nightmode, verbose=args.verbose)
+    mcfg = resolve_model(args, config)
+    network = mcfg.get("network", "UtNet")
+    model = params_io.load_generator(mcfg["path"], network, mcfg.get("activation", "PReLU"))
+    ndev = len(devices)
+    cs, ucs, check = _resolve_tiles(network, args.cs, args.ucs)
+    fns = replicate_apply_fn(network, model, args.compute_dtype, devices)
+    sigma, iterations = int(args.sigma or 1), int(args.iterations or 10)
+    kw = dict(compute_dtype=args.compute_dtype, precision=args.precision, size_check=check)
+    tiff = _initial_outpath(args, files[0]).suffix.lower() == ".tiff"
+    engines: dict = {}
+    tilings: dict = {}
+    written: dict = {}
+
+    def tiling_for(h, w):
+        if (h, w) not in tilings:
+            tilings[(h, w)] = adapt_cs_ucs(h, w, cs, ucs, check=check)
+            if tilings[(h, w)] != (cs, ucs):
+                print(f"{w}x{h} images too small for cs={cs}; using cs={tilings[(h, w)][0]}")
+        return tilings[(h, w)]
+
+    def cached(key, build):
+        if key not in engines:
+            engines[key] = build()
+        return engines[key]
+
+    def outpath_for(f):
+        out = _collision_resolve(_initial_outpath(args, f), session.taken)
+        session.taken.add(out)
+        return out
+
+    def post(out01):
+        return _to_host(out01, args, sigma, iterations, tiff)
+
+    def write(f, outpath, arr):
+        _write_host(arr, outpath, args.quality or "90")
+        exif_mod.clone_exif(f, outpath, verbose=args.verbose)
+
+    def one_by_one(members, scale, engine, how, run):
+        for f, raw in members:
+            print(f"\n----------------- {f.name} ({how}) -----------------\n")
+            outpath = outpath_for(f)
+            write(f, outpath, post(run(engine, raw, scale)))
+            written[f] = outpath
+
+    def process_chunk(chunk, scale):
+        h, w = chunk[0][1].shape[:2]
+        try:
+            tile = tiling_for(h, w)
+        except TilingError:
+            tiny = cached("tiny", lambda: TileEngine(fns[0], cs, ucs, device=devices[0], **kw))
+            return one_by_one(chunk, scale, tiny, "tiny, padded forward",
+                              lambda e, r, sc: e.denoise_tiny(r, sc, out_dtype="device"))
+        if len(chunk) * 2 <= ndev:
+            # few images, many devices: row bands use every device per image
+            sharded = cached(("band",) + tile, lambda: make_sharded_denoiser(
+                network, None, devices, *tile, batch_size=args.batch_size,
+                compute_dtype=args.compute_dtype, precision=args.precision,
+                apply_fns=fns))
+            return one_by_one(chunk, scale, sharded, f"row-band x{ndev}",
+                              lambda e, r, sc: e.denoise_raw(r, sc, out_dtype="device"))
+        batcher = cached(("batch",) + tile, lambda: DeviceBatchDenoiser([
+            TileEngine(fn, *tile, batch_size=max(1, args.batch_size // ndev), device=d, **kw)
+            for fn, d in zip(fns, devices)]))
+        outs = batcher.denoise_batch([r for _, r in chunk], scale,
+                                     post=lambda i, out01: post(out01))
+        for j, ((f, _), arr) in enumerate(zip(chunk, outs)):
+            print(f"\n----------------- {f.name} (device {j}) -----------------\n")
+            outpath = outpath_for(f)
+            write(f, outpath, arr)
+            written[f] = outpath
+
+    def process_stragglers_pool(groups):
+        """Leftovers too few for the image batcher run concurrently, one
+        request a device (mixed shapes do not couple; tiny shapes take the
+        padded forward inside the replica)."""
+        items = [(f, raw, scale, outpath_for(f)) for members, scale in groups
+                 for f, raw in members]
+        pool = EnginePool(network, model, devices, cs=args.cs, ucs=args.ucs,
+                          batch_size=args.batch_size, compute_dtype=args.compute_dtype,
+                          precision=args.precision)
+        try:
+            def one(worker, item):
+                f, raw, scale, outpath = item
+                write(f, outpath, post(worker.denoise_raw(raw, scale, out_dtype="device")))
+                print(f"\n----------------- {f.name} (pool: {worker.device}) "
+                      f"-----------------\n")
+                return outpath
+
+            for (f, *_), outpath in zip(items, pool.map(items, one)):
+                written[f] = outpath
+        finally:
+            pool.close()
+
+    # streaming decode, grouped by (shape, dtype, scale): host memory holds
+    # about one image a device for each distinct shape
+    pending: dict = {}
+    for f in files:
+        raw, scale = imgio.load_img_raw(str(f))
+        key = (raw.shape, str(raw.dtype), scale)
+        pending.setdefault(key, []).append((f, raw))
+        if len(pending[key]) == ndev:
+            process_chunk(pending.pop(key), scale)
+    small, big = [], []
+    for (_, _, scale), members in pending.items():
+        (small if len(members) * 2 <= ndev else big).append((members, scale))
+    for members, scale in big:
+        process_chunk(members, scale)
+    if sum(len(m) for m, _ in small) >= 2:
+        process_stragglers_pool(small)
+    else:
+        for members, scale in small:
+            process_chunk(members, scale)
+    return written
+
+
 def main(argv=None):
     """Denoise a file (returns its output path, or None if skipped) or a
-    directory (returns the list, in sorted file order)."""
+    directory (returns the list of this process's files' outputs, in sorted
+    file order)."""
+    from ..parallel import mesh
+
+    # torchrun's variables: join the process group before any device work
+    if os.environ.get("MASTER_ADDR"):
+        mesh.init_distributed()
     args = build_parser().parse_args(argv)
-    check_ported(args)
     input_path = pathlib.Path(args.raw_image)
     session = Session()
     try:
@@ -461,13 +628,27 @@ def main(argv=None):
         # (denoise.py:491-500); with --tiff-input, the TIFFs
         exts = [".tif", ".tiff"] if args.tiff_input else VALID_EXTENSIONS
         files = [f for f in sorted(input_path.iterdir()) if f.suffix.lower() in exts]
-        written = []
-        for i, f in enumerate(files):
-            if args.tiff_input and i + 1 < len(files):
-                session.prefetch(files[i + 1])  # overlap the decode with compute
+        if mesh.process_count() > 1:
+            # images are independent: each process owns a strided shard
+            nfiles = len(files)
+            files = mesh.process_shard(files)
+            print(f"{mesh.process_count()} processes: process {mesh.process_index()} "
+                  f"takes {len(files)}/{nfiles} files")
+        devices = mesh.make_devices(args.devices, args.device)
+        done: dict = {}
+        if len(devices) > 1 and files:
+            cmd_darktable = external.find_darktable(args.dt)
+            cmd_gmic = external.find_gmic(args.gmic) if args.use_gmic else None
+            batch = [f for f in files if _batchable(args, f, cmd_darktable, cmd_gmic)]
+            if batch:
+                done = denoise_dir_batch(args, batch, devices, session)
+        rest = [f for f in files if f not in done]
+        for i, f in enumerate(rest):
+            if args.tiff_input and i + 1 < len(rest):
+                session.prefetch(rest[i + 1])  # overlap the decode with compute
             print(f"\n----------------------- {f.name} -------------------------\n")
-            written.append(denoise_file(args, f, session))
-        return written
+            done[f] = denoise_file(args, f, session)
+        return [done[f] for f in files]
     finally:
         session.close()
 

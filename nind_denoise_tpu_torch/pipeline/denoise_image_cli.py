@@ -22,9 +22,17 @@ CLI writes a ``jax.profiler`` trace.
 
 The engine runs UtNet and UNet, as the JAX one does: the rest of the zoo
 (the relics and MobileNetV3 among them) raises ValueError before anything
-is loaded or written. Not ported, and raising ``NotImplementedError``
-rather than being ignored: more than one device (``--devices`` > 1,
-ROADMAP queue 1 item 9).
+is loaded or written.
+
+``--devices N`` (``parallel/mesh.make_devices``: ``cuda:0 .. cuda:N-1``,
+or N logical CPU devices under ``--device cpu``; absent or without a value,
+every visible GPU) runs the tiled path as row bands over the devices
+(``parallel/sharded_engine``; ``int8_static`` calibrates on the input
+first) and ``--whole_image`` as an H-split forward (``parallel/spatial``)
+over the largest divisor of the padded height that is at most N; int8 over
+more than one device is refused there, as in JAX. ``--debug`` and images
+below the minimum tiling run on one device. With torchrun's variables set
+the process joins its group first (``parallel/mesh.init_distributed``).
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_image_cli \
         -i noisy.tif -o denoised.tiff --network UtNet --model_path ckpt.npz
@@ -42,9 +50,11 @@ import numpy as np
 
 from ..core import imgio
 from ..core.tiles import TilingError, adapt_cs_ucs, default_cs_ucs
-from ..engine.tile_engine import check_engine_network, make_engine, size_check
+from ..engine.tile_engine import (_IO_DTYPES, _tf32, check_engine_network, make_engine,
+                                  make_sharded_denoiser, replicate_apply_fn, size_check)
 from ..models import params_io
 from ..ops.qconv import calib_from_image
+from ..parallel import mesh
 from ..utils import conf
 from ..utils.log import StageTimers, maybe_profile
 from . import exif as exif_mod
@@ -122,17 +132,16 @@ def build_parser() -> conf.LayeredArgumentParser:
                                        "into this directory")
     p.add_argument("-q", "--quality", type=int, default=95,
                    help="JPEG quality for .jpg outputs")
-    p.add_argument("--devices", type=int,
-                   help="1 (one GPU); more is not ported yet (ROADMAP queue 1 item 9)")
+    p.add_argument("--devices", type=int, nargs="?", const=0,
+                   help="Shard over this many devices (row bands; --whole_image: "
+                        "H bands). Absent or without a value: every visible GPU; "
+                        "1 forces the single-device engine")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
 
 def check_ported(args) -> None:
-    """Raise on a flag value the port does not run yet."""
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 is not ported yet (ROADMAP queue 1 item 9, multi-GPU)")
+    """Raise on a network the engine does not run."""
     check_engine_network(args.g_network)
 
 
@@ -179,8 +188,15 @@ def run(args, timers: Optional[StageTimers] = None) -> str:
                            debug_dir="dbg" if args.debug else None,
                            device=args.device)
 
+    devices = mesh.make_devices(args.devices, args.device)
+    if args.debug and len(devices) > 1:
+        print("--debug tile dumps are a single-device feature; using 1 device")
+        devices = devices[:1]
     start_time = time.time()
-    if args.whole_image:
+    how = ""
+    if args.whole_image and len(devices) > 1:
+        how = _run_whole_spatial(args, model, devices, timers)
+    elif args.whole_image:
         with timers.stage("decode"):
             img = imgio.load_img(args.input)
         with timers.stage("denoise"):
@@ -204,9 +220,18 @@ def run(args, timers: Optional[StageTimers] = None) -> str:
                 if (cs, ucs) != (args.cs, args.ucs):
                     print(f"Image {raw.shape[1]}x{raw.shape[0]} too small for "
                           f"cs={args.cs}/ucs={args.ucs}; using cs={cs}, ucs={ucs}")
-                engine = build_engine(cs, ucs, calib)
+                if len(devices) > 1:
+                    engine = make_sharded_denoiser(
+                        args.g_network, model, devices, cs=cs, ucs=ucs, ol=args.overlap,
+                        batch_size=args.batch_size, compute_dtype=args.compute_dtype,
+                        precision=args.precision, max_subpixels=args.max_subpixels,
+                        calib=calib)
+                    how = f" ({len(devices)}-device row-band sharding)"
+                else:
+                    engine = build_engine(cs, ucs, calib)
                 den = lambda dt: engine.denoise_raw(raw, scale, out_dtype=dt)
             except TilingError:
+                # sharding an image below the minimum tiling is pointless
                 print(f"Image {raw.shape[1]}x{raw.shape[0]} below the minimum "
                       f"tiling; denoising as one padded forward")
                 engine = build_engine(args.cs, args.ucs, calib)
@@ -219,14 +244,49 @@ def run(args, timers: Optional[StageTimers] = None) -> str:
             else:  # .tiff fp32, unclipped
                 out = den("float32" if args.precision == "float32" else "float16")
                 imgio.save_img(out.astype(np.float32).transpose(2, 0, 1), args.output)
-    print(f"Denoised image written to {args.output}")
+    print(f"Denoised image written to {args.output}{how}")
     if args.exif_method != "noexif":
         exif_mod.clone_exif(args.input, args.output)
     print("Elapsed time: " + str(time.time() - start_time) + " seconds")
     return args.output
 
 
+def _run_whole_spatial(args, model, devices, timers: StageTimers) -> str:
+    """``--whole_image`` over more than one device: the forward with H split
+    into bands (``parallel/spatial.SpatialShardedForward``), over the
+    largest divisor of the padded height that is at most the device count
+    (1: the plain forward), as the JAX CLI shrinks its mesh."""
+    from ..core import tiles as tiles_mod
+    from ..parallel.spatial import SpatialShardedForward, device_count
+
+    if args.compute_dtype.startswith("int8"):
+        raise SystemExit(
+            "--whole_image over >1 device does not support --compute_dtype "
+            "int8/int8_static; drop --whole_image (the tiled path supports "
+            "it) or use --compute_dtype bfloat16/float32")
+    with timers.stage("decode"):
+        img = imgio.load_img(args.input)
+    with timers.stage("denoise"):
+        pad = args.pad or 0
+        padded = tiles_mod.whole_image_pad(img, pad) if pad else img.astype(np.float32)
+        hp = padded.shape[1]
+        nd = device_count(hp, len(devices))
+        if nd != len(devices):
+            print(f"whole-image H={hp} not divisible by {len(devices)} devices; "
+                  f"sharding over {nd}")
+        fwd = SpatialShardedForward(
+            replicate_apply_fn(args.g_network, model, args.compute_dtype, devices[:nd]),
+            devices[:nd], size_check(args.g_network), _IO_DTYPES[args.compute_dtype])
+        with _tf32(not (args.compute_dtype == "float32" and args.precision == "float32")):
+            y = fwd(padded.transpose(1, 2, 0)).transpose(2, 0, 1)
+        imgio.save_img(y[:, pad:-pad, pad:-pad] if pad else y, args.output)
+    return f" ({nd}-device spatial sharding, whole image)"
+
+
 def main(argv=None):
+    # torchrun's variables: join the process group before any device work
+    if os.environ.get("MASTER_ADDR"):
+        mesh.init_distributed()
     args, _ = build_parser().parse_known_args_layered(argv)
     with maybe_profile(args.trace_dir):
         return run(args)

@@ -1,7 +1,15 @@
-"""denoise-serve — the persistent HTTP serving daemon, on one GPU.
+"""denoise-serve — the persistent HTTP serving daemon, on one or more GPUs.
 
-Counterpart of ``nind_denoise_tpu/pipeline/serve.py`` in its single mode.
-The checkpoint loads once and the engine stays warm across requests:
+Counterpart of ``nind_denoise_tpu/pipeline/serve.py``. The checkpoint
+loads once and the engines stay warm across requests. ``--parallel``
+picks the multi-device strategy over ``--devices`` (``parallel/mesh``;
+absent: every visible GPU): ``auto`` shards when there is more than one
+device, ``single`` runs one, ``shard`` splits every request into row bands
+over all devices (``parallel/sharded_engine``, lowest latency; RL on the
+first device), ``images`` runs one request a device through
+``parallel/engine_pool`` (highest throughput under concurrent load; its
+workers coalesce as the dispatcher below does, and ``/stats`` counts
+requests ``per_device``). In single mode:
 
 * stdlib ``http.server``; handler threads decode the request body and
   enqueue it, and ONE dispatcher thread runs all device work from a
@@ -19,7 +27,7 @@ The checkpoint loads once and the engine stays warm across requests:
 
 Endpoints:
 
-* ``GET  /healthz`` -> {"status": "ok", "devices": 1, "mode", "cs", "ucs"}
+* ``GET  /healthz`` -> {"status": "ok", "devices", "mode", "cs", "ucs"}
 * ``GET  /stats``   -> counters, ``latency_ms`` (p50/p95/p99/mean/max over
   the last 1024 requests, decode -> fetched result), ``stage_s``,
   ``group_sizes``, ``coalesced_requests``, ``rejected_busy``
@@ -32,8 +40,7 @@ Endpoints:
 ``--compute_dtype int8|int8_static`` serves the quantized forward
 (kernel P1); ``int8_static`` recalibrates on each request's image and
 never coalesces (``AdaptiveEngine``). ``psf=gmic_fast`` runs RL with the
-Deriche IIR (kernel P2). Not ported yet: ``--parallel shard|images``
-(multi-GPU).
+Deriche IIR (kernel P2).
 
     python -m nind_denoise_tpu_torch.pipeline.serve --model_path ckpt.npz \
         [--device cpu] --port 8601
@@ -59,8 +66,8 @@ import torch
 from ..engine.tile_engine import AdaptiveEngine
 from ..models import params_io
 from ..ops import rl_deblur
+from ..parallel import mesh
 from ..utils import workqueue
-from ..utils.device import resolve_device
 
 
 class ServiceBusy(RuntimeError):
@@ -75,11 +82,13 @@ def _check_psf(rl: bool, psf: str) -> None:
 
 
 class DenoiseService:
-    """Warm engine + one dispatcher thread; thread-safe submit().
+    """Warm engine(s) + dispatch; thread-safe submit().
 
-    ``network``: UtNet or UNet. ``parallel``: 'auto' and 'single' run on
-    one device; 'shard' and 'images' (multi-GPU) are not ported yet, nor
-    is ``devices`` > 1."""
+    ``network``: UtNet or UNet. ``devices``: a count or a device list
+    (``parallel/mesh.make_devices``; None: every visible GPU, or the CPU
+    under ``device="cpu"``). ``parallel``: 'auto' (shard when >1 device),
+    'shard' (row bands of every request over all devices), 'images' (one
+    request a device, ``EnginePool``) or 'single' (one device)."""
 
     # max requests per coalesced group: bounds the stacked band's device
     # memory and the latency a request adds to those coalesced behind it
@@ -91,18 +100,18 @@ class DenoiseService:
                  activation: str = "PReLU", batch_size: int = 8,
                  compute_dtype: str = "bfloat16", device=None,
                  max_pending: int = 8, parallel: str = "auto", devices=None):
-        if devices is not None and devices > 1:
-            raise NotImplementedError(
-                f"devices={devices} (multi-GPU) is not ported yet "
-                f"(ROADMAP queue 1 item 9)")
-        if parallel in ("shard", "images"):
-            raise NotImplementedError(
-                f"parallel={parallel!r} (multi-GPU) is not ported yet "
-                f"(ROADMAP queue 1 item 9)")
-        if parallel not in ("auto", "single"):
+        if parallel not in ("auto", "single", "shard", "images"):
             raise ValueError(f"unknown parallel mode {parallel!r}")
-        self.mode, self.ndev = "single", 1
-        self.device = resolve_device(device)
+        self.devices = mesh.make_devices(devices, device)
+        self.ndev = len(self.devices)
+        if parallel == "auto":
+            parallel = "shard" if self.ndev > 1 else "single"
+        if parallel != "images" and self.ndev <= 1:
+            parallel = "single"
+        self.mode = parallel
+        if parallel == "single":
+            self.devices, self.ndev = self.devices[:1], 1
+        self.device = self.devices[0]
         self._network, self._activation = network, activation
         self._batch_size, self._compute_dtype = batch_size, compute_dtype
         self.stats = {"requests": 0, "errors": 0, "megapixels": 0.0,
@@ -121,16 +130,35 @@ class DenoiseService:
         self._stats_lock = threading.Lock()
         self._latencies = collections.deque(maxlen=self.LATENCY_WINDOW)
         model = params_io.load_generator(model_path, network, activation)
+        self._pool = self._q = None
+        self._closing = threading.Event()
+        if parallel == "images":
+            from ..parallel.engine_pool import EnginePool
+
+            self._pool = EnginePool(network, model, self.devices, cs=cs, ucs=ucs,
+                                    batch_size=batch_size, compute_dtype=compute_dtype,
+                                    max_pending=max_pending)
+            self.cs, self.ucs = self._pool.cs, self._pool.ucs
+            return
         self._adaptive = self._build_engine(model, cs, ucs)
         self.cs, self.ucs = self._adaptive.cs, self._adaptive.ucs
         # bounded queue = backpressure: each queued job holds a decoded
         # image; beyond the bound submit() raises ServiceBusy (-> 503)
         self._q = queue.Queue(maxsize=max_pending)
-        self._closing = threading.Event()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
-    def _build_engine(self, model, cs, ucs) -> AdaptiveEngine:
+    def _build_engine(self, model, cs, ucs):
+        """Single mode: one ``AdaptiveEngine``; shard mode:
+        ``AdaptiveSharded`` (row bands over every device for each adapted
+        tile size, the first device's padded forward below the minimum
+        tiling)."""
+        if self.mode == "shard":
+            from ..parallel.sharded_engine import AdaptiveSharded
+
+            return AdaptiveSharded(self._network, model, self.devices, cs=cs, ucs=ucs,
+                                   batch_size=self._batch_size,
+                                   compute_dtype=self._compute_dtype)
         return AdaptiveEngine(
             self._network, model, cs=cs, ucs=ucs, batch_size=self._batch_size,
             compute_dtype=self._compute_dtype, device=self.device)
@@ -298,26 +326,29 @@ class DenoiseService:
                 rl: bool = True, sigma: float = 1.0, iterations: int = 10,
                 psf: str = "gaussian") -> dict:
         """Run each group size 1..MAX_COALESCE once at (height, width) on
-        the dispatcher thread, so that first traffic does not pay the
-        libraries' first-call set-up. Returns {"mode", "sizes", "seconds"}."""
+        the dispatcher thread (images mode: on every pool worker; shard mode
+        has no groups), so that first traffic does not pay the libraries'
+        first-call set-up. Returns {"mode", "sizes", "seconds"}."""
         t0 = time.perf_counter()
         np_dtype = np.dtype(dtype)
         scale = {np.uint8: 255.0, np.uint16: 65535.0}.get(np_dtype.type, 1.0)
         rl_p = {"rl": rl, "sigma": sigma, "iterations": iterations, "psf": psf}
         sizes = list(range(1, self.MAX_COALESCE + 1))
 
-        def warm():
+        def warm(engine):
             raw = np.zeros((height, width, 3), np_dtype)
             for n in sizes:
-                outs = self._adaptive.denoise_many([raw] * n, scale,
-                                                   out_dtype="device")
+                outs = engine.denoise_many([raw] * n, scale, out_dtype="device")
                 if n == 1:
                     self._post_u8(outs[0], rl_p)
                 else:
                     self._post_u8_batch(outs, rl_p)
             return True
 
-        self.submit(warm)
+        if self.mode == "images":  # every replica on its own worker
+            self._pool.map(range(len(self._pool.devices)), lambda w, _i: warm(w))
+        elif self.mode == "single":
+            self.submit(lambda: warm(self._adaptive))
         return {"mode": self.mode, "sizes": sizes,
                 "seconds": round(time.perf_counter() - t0, 2)}
 
@@ -327,14 +358,16 @@ class DenoiseService:
         between requests. Requests queued before the reload finish on the
         old weights, later ones run the new; none is dropped."""
         model = params_io.load_generator(model_path, self._network, self._activation)
+        if self.mode == "images":
+            self._pool.reload(model)
+        else:
+            def swap():
+                # a failed build raises before the assignment: the service
+                # stays on the previous engine
+                self._adaptive = self._build_engine(model, self.cs, self.ucs)
+                return True
 
-        def swap():
-            # a failed build raises before the assignment: the service
-            # stays on the previous engine
-            self._adaptive = self._build_engine(model, self.cs, self.ucs)
-            return True
-
-        self.submit(swap)
+            self.submit(swap)
         with self._stats_lock:
             self.stats["reloads"] += 1
         return {"status": "reloaded", "model_path": model_path, "mode": self.mode}
@@ -342,6 +375,9 @@ class DenoiseService:
     def close(self):
         """Retire the dispatcher without blocking: the flag lets it exit
         once the queue drains even when the sentinel does not fit."""
+        if self._pool is not None:
+            self._pool.close()
+            return
         self._closing.set()
         try:
             self._q.put_nowait(None)
@@ -367,8 +403,9 @@ class DenoiseService:
         t_dec = time.perf_counter()
         self._stage("decode", t_dec - t_req)
         try:
-            u8 = self.submit_denoise(raw, scale, rl, float(sigma), int(iterations),
-                                     psf, t_enq=t_dec)
+            u8 = self._dispatch(raw, scale, {"rl": rl, "sigma": float(sigma),
+                                             "iterations": int(iterations), "psf": psf,
+                                             "t_enq": t_dec})
         except ServiceBusy:
             # instant 503s stay out of the latency window, or a flood of
             # them would drag p50/p95 down exactly under overload
@@ -392,6 +429,54 @@ class DenoiseService:
         out = buf.tobytes()
         self._stage("encode", time.perf_counter() - t_enc)
         return out
+
+    def _dispatch(self, raw: np.ndarray, scale: float, p: dict) -> np.ndarray:
+        """Route one decoded request to the mode's engines; the uint8 result."""
+        if self.mode == "single":
+            # typed: concurrent same-shape requests coalesce (_run_group)
+            return self.submit_denoise(raw, scale, p["rl"], p["sigma"], p["iterations"],
+                                       p["psf"], t_enq=p["t_enq"])
+        mp = raw.shape[0] * raw.shape[1] / 1e6
+        if self.mode == "images":
+            def post(engine, out01, meta):
+                # on the worker that denoised; the group's time is shared out
+                t0 = time.perf_counter()
+                u8 = self._post_u8(out01, p)
+                t1 = time.perf_counter()
+                with self._stats_lock:
+                    self.stats["busy_s"] += meta["elapsed"] / meta["group"] + t1 - t0
+                    self.stats["megapixels"] += mp
+                    st = self.stats["stage_s"]
+                    st["queue"] += max(0.0, t0 - p["t_enq"] - meta["elapsed"])
+                    st["denoise"] += meta["elapsed"] / meta["group"]
+                    st["post"] += t1 - t0
+                    per = self.stats["per_device"]
+                    per[meta["device"]] = per.get(meta["device"], 0) + 1
+                    if meta["group"] > 1:
+                        self.stats["coalesced_requests"] += 1
+                return u8
+
+            try:
+                return self._pool.submit_denoise(raw, scale, post, block=False)
+            except queue.Full:
+                raise ServiceBusy("request queue full") from None
+
+        def work():  # shard mode, on the dispatcher thread
+            t0 = time.perf_counter()
+            out01 = self._adaptive.denoise_raw(raw, scale, out_dtype="device")
+            t1 = time.perf_counter()
+            u8 = self._post_u8(out01, p)
+            t2 = time.perf_counter()
+            with self._stats_lock:
+                self.stats["busy_s"] += t2 - t0
+                self.stats["megapixels"] += mp
+                st = self.stats["stage_s"]
+                st["queue"] += t0 - p["t_enq"]
+                st["denoise"] += t1 - t0
+                st["post"] += t2 - t1
+            return u8
+
+        return self.submit(work)
 
 
 def make_handler(svc: DenoiseService):
@@ -502,13 +587,16 @@ def main(argv=None):
                     choices=["bfloat16", "float32", "int8", "int8_static"],
                     help="int8/int8_static (UtNet only): the quantized forward; "
                          "int8_static recalibrates on each request")
-    ap.add_argument("--devices", type=int,
-                    help="1 (one GPU); more is not ported yet (ROADMAP queue 1 item 9)")
+    ap.add_argument("--devices", type=int, nargs="?", const=0,
+                    help="devices to serve on (absent or without a value: every "
+                         "visible GPU; with --device cpu, logical CPU devices)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--parallel", default="auto",
                     choices=["auto", "shard", "images", "single"],
-                    help="auto and single run on one device; shard and "
-                         "images (multi-GPU) are not ported yet")
+                    help="multi-device strategy: shard = row-band split of each "
+                         "request over all devices (lowest latency); images = "
+                         "request-per-device pool (highest aggregate throughput "
+                         "under concurrent load); auto = shard when >1 device")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8601)
     ap.add_argument("--max_pending", type=int, default=8,
@@ -532,8 +620,8 @@ def main(argv=None):
     httpd = serve(svc, args.host, args.port)
     # report the bound port (--port 0 = ephemeral)
     print(f"denoise-serve: listening on http://{args.host}:{httpd.server_address[1]} "
-          f"(device {svc.device}, mode={svc.mode}, cs={svc.cs}/ucs={svc.ucs})",
-          flush=True)
+          f"({svc.ndev} device(s), first {svc.device}, mode={svc.mode}, "
+          f"cs={svc.cs}/ucs={svc.ucs})", flush=True)
 
     # SIGTERM, the orchestrator's stop signal: stop accepting, drain the
     # in-flight requests, exit 0. shutdown() must run off the serving

@@ -35,7 +35,7 @@ anything is written (``check_ported``): a pix2pix critic with
 ``--not_conditional`` and ``MultiscaleDiscriminator`` (either fails at its
 first step in JAX), HunkyDisc below 256 px of ``--loss_cs`` (its
 prediction map is empty there), the registry's other generators (as in
-JAX), and what is not ported yet: multi-host runs (ROADMAP item 9).
+JAX), and what is not ported yet: multi-host runs (ROADMAP item 9.2).
 
 UNet trains with BatchNorm in train mode (batch statistics, running stats
 updated; microbatch by microbatch under ``--grad_accum``), validates in
@@ -187,11 +187,11 @@ def build_parser():
                         "negative, and a randomly initialized generator can "
                         "start in that dead zone. Default 0 = reference "
                         "parity.")
-    p.add_argument("--coordinator", help="multi-host: not ported (ROADMAP item 9)")
+    p.add_argument("--coordinator", help="multi-host: not ported (ROADMAP item 9.2)")
     p.add_argument("--num_processes", type=int,
-                   help="multi-host: not ported (ROADMAP item 9)")
+                   help="multi-host: not ported (ROADMAP item 9.2)")
     p.add_argument("--process_id", type=int,
-                   help="multi-host: not ported (ROADMAP item 9)")
+                   help="multi-host: not ported (ROADMAP item 9.2)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu when asked)")
     return p
@@ -219,7 +219,7 @@ def check_ported(args) -> None:
     map), HunkyDisc below 256 px of loss crop (its prediction map is empty:
     the JAX package's step takes the mean of no element there), a generator
     the reference never trains, and what is queued in ROADMAP.md
-    (multi-host: item 9)."""
+    (multi-host: item 9.2)."""
     for flag, weight, network, uncond in (
             ("--d_network", args.weight_D1, args.d_network, args.not_conditional),
             ("--d2_network", args.weight_D2, args.d2_network, args.not_conditional_2)):
@@ -254,7 +254,7 @@ def check_ported(args) -> None:
     if args.coordinator or args.num_processes or args.process_id is not None:
         raise NotImplementedError(
             "--coordinator/--num_processes/--process_id: multi-host training "
-            "is not ported yet (ROADMAP item 9)")
+            "is not ported yet (ROADMAP item 9.2)")
 
 
 def get_test_reserve_list(test_reserve):

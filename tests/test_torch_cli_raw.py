@@ -5,8 +5,9 @@ sidecar (stage 2 runs), --use-gmic, --debug with --nightmode (the kept
 intermediates), --no_deblur, --copy_num and a RAW without a sidecar. The
 pre-encode uint8 images agree within 1 LSB and the stand-ins' command lines
 are equal. Then the port alone: a missing checkpoint or darktable raises,
-flag values not ported raise, and a directory loads its checkpoint once
-with every output equal to its own single run."""
+networks the engine does not run raise, ``--devices 2`` runs, and a
+directory loads its checkpoint once with every output equal to its own
+single run."""
 
 import json
 import os
@@ -15,6 +16,7 @@ import xml.etree.ElementTree as ET
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from nind_denoise_tpu.ops import rl_deblur as jax_rl
 from nind_denoise_tpu.pipeline import denoise_cli as jax_cli
@@ -29,6 +31,16 @@ from test_torch_xmp import _assert_same_tree
 H, W = 120, 140
 COMMON = ["--cs", "104", "--ucs", "88", "--batch_size", "2",
           "--compute_dtype", "float32", "-q", "95"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Torch's default threads under the fast tier's parallel workers
+    oversubscribe the host: two a worker, as test_torch_train_gan_cli.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -164,14 +176,12 @@ def test_raw_without_darktable_raises(tmp_path, checkpoint):
 
 
 @pytest.mark.parametrize("cli,argv,exc,item", [
-    ("denoise_image", ["--devices", "2"], NotImplementedError, "item 9"),
     # --trace_dir runs since the profiler capture was ported (tests/test_torch_legacy.py);
     # a refused run writes no trace
     ("denoise_image", ["--network", "DnCNN", "--trace_dir", "trace"], ValueError,
      "unsupported generator"),
     # the relic zoo is in the registry, not in the engine, as in JAX
     ("denoise_image", ["--network", "HuNet"], ValueError, "unsupported generator"),
-    ("denoise", ["--devices", "2"], NotImplementedError, "item 9"),
 ])
 def test_flags_not_ported_raise(tmp_path, monkeypatch, checkpoint, cli, argv, exc, item):
     monkeypatch.chdir(tmp_path)  # a relative --trace_dir would land here
@@ -218,6 +228,39 @@ def test_directory_loads_once_and_matches_single_runs(tmp_path, monkeypatch, che
     assert len(loads) == 5
     for got, ref in zip(batch, seen[4:]):
         np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("cli", ["denoise_image", "denoise"])
+def test_devices_2_runs(tmp_path, monkeypatch, checkpoint, cli):
+    """``--devices 2 --device cpu``: denoise_image by row bands over two CPU
+    devices, denoise with a directory of two same-shape files one a device;
+    each output within 1 LSB of its ``--devices 1`` run (the tiles per
+    dispatch differ, and torch's CPU convolutions round by batch)."""
+    src = tmp_path / "in"
+    src.mkdir()
+    for i in range(2):
+        _tiff(src / f"f{i}.tif", seed=30 + i)
+    if cli == "denoise_image":
+        outs = {}
+        for n in ("1", "2"):
+            out = str(tmp_path / f"o{n}.tif")
+            port_image_cli.main(["-i", str(src / "f0.tif"), "-o", out, "--network", "UtNet",
+                                 "--model_path", checkpoint, "--cs", "104", "--ucs", "88",
+                                 "-b", "2", "--compute_dtype", "float32", "--device", "cpu",
+                                 "--exif_method", "noexif", "--devices", n])
+            outs[n] = cv2.imread(out, cv2.IMREAD_UNCHANGED).astype(int)
+        assert outs["2"].shape == (H, W, 3)
+        assert np.abs(outs["2"] - outs["1"]).max() <= 1
+        return
+    seen = _capture(monkeypatch)["port"]
+    argv = ["--tiff-input", "--model_path", checkpoint, "--device", "cpu"] + COMMON
+    for n in ("1", "2"):
+        (tmp_path / n).mkdir()
+        outs = port_cli.main([str(src), "-o", str(tmp_path / n), "--devices", n] + argv)
+        assert [o.name for o in outs] == ["f0.jpg", "f1.jpg"] and all(o.is_file() for o in outs)
+    assert len(seen) == 4
+    for got, ref in zip(seen[2:], seen[:2]):
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
 def test_devices_1_runs(tmp_path, checkpoint):

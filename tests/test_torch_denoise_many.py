@@ -20,6 +20,16 @@ ATOL, RTOL = 5e-5, 1e-4  # fp32, the engine bar of tests/test_torch_engine.py
 KW = dict(compute_dtype="float32", precision="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Torch's default threads under the fast tier's parallel workers
+    oversubscribe the host: two a worker, as test_torch_train_gan_cli.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     params = JaxUtNet.init(jax.random.PRNGKey(3), funit=8)

@@ -18,6 +18,16 @@ CS, UCS, OL = 104, 88, 6
 ATOL, RTOL = 5e-5, 1e-4  # fp32, as tests/test_golden_e2e.py
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Torch's default threads under the fast tier's parallel workers
+    oversubscribe the host: two a worker, as test_torch_train_gan_cli.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engines():
     params = JaxUtNet.init(jax.random.PRNGKey(11), funit=8)

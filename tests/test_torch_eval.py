@@ -49,6 +49,16 @@ BF16_LSB, BF16_EQUAL, BF16_SCORE = 256, 0.9, 1e-5
 COMMON = ["--network", "UtNet", "--cs", "104", "--ucs", "88", "--batch_size", "4"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Torch's default threads under the fast tier's parallel workers
+    oversubscribe the host: two a worker, as test_torch_train_gan_cli.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _smooth(rng, h, w):
     img = cv2.resize(rng.random((h // 8, w // 8, 3)).astype(np.float32), (w, h),
                      interpolation=cv2.INTER_CUBIC)
@@ -235,21 +245,57 @@ def test_denoise_dir_skip_existing_decodes_and_denoises_nothing(tree, tmp_path, 
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--devices", "2", "--noisy_dir", "."], NotImplementedError, "item 9"),
     (["--network", "DnCNN", "--noisy_dir", "."], ValueError, "unsupported generator"),
     (["--network", "HuNet", "--noisy_dir", "."], ValueError, "unsupported generator"),
-    (["--noisy_dir", ".", "WORLD_SIZE=2"], NotImplementedError, "item 9"),
     (["--test_reserve"], SystemExit, "noisy_dir"),
     (["--test_reserve", "S1"], SystemExit, "orig_data"),
 ])
 def test_denoise_dir_refuses(tmp_path, monkeypatch, extra, exc, match):
-    if "WORLD_SIZE=2" in extra:
-        monkeypatch.setenv("WORLD_SIZE", "2")
-        extra = extra[:-1]
     argv = ["--model_path", _checkpoint(tmp_path), "--network", "UtNet",
             "--cs", "104", "--ucs", "88", "--device", "cpu"]
     with pytest.raises(exc, match=match):
         port_dd.main(argv + extra)
+
+
+@pytest.mark.parametrize("how", ["devices_2", "world_size_2"])
+def test_denoise_dir_runs_on_two_devices_and_as_a_second_process(tree, tmp_path,
+                                                                 monkeypatch, how):
+    """``--devices 2``: every output within 1 LSB of the one-device run, the
+    same scores within 1e-5 (bf16 in both). ``WORLD_SIZE=2`` with torchrun's
+    variables, as the second process (the group and its all-gather stood in
+    for by a first process whose shard scored nothing): the odd images of
+    each set only, their mean as the set's, and no record written."""
+    argv = ["--model_path", _checkpoint(tmp_path), *COMMON, "--device", "cpu",
+            "--noisy_dir", str(tree / "scenes")]
+    one = port_dd.main(argv + ["--result_dir", str(tmp_path / "one")])
+    if how == "devices_2":
+        two = port_dd.main(argv + ["--result_dir", str(tmp_path / "two"), "--devices", "2"])
+        for k in one:
+            assert abs(two[k] - one[k]) <= 1e-5, k
+        for fn in os.listdir(tmp_path / "one" / "model"):
+            if fn.endswith((".png", ".tif")):
+                a, b = (cv2.imread(str(tmp_path / d / "model" / fn), cv2.IMREAD_UNCHANGED)
+                        for d in ("one", "two"))
+                assert np.abs(a.astype(int) - b.astype(int)).max() <= 1, fn
+        return
+    from nind_denoise_tpu_torch.parallel import mesh
+
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "29511"),
+                 ("WORLD_SIZE", "2"), ("RANK", "1")):
+        monkeypatch.setenv(k, v)
+    joined = []
+    monkeypatch.setattr(mesh, "init_distributed", lambda *a, **kw: joined.append(1) or True)
+    monkeypatch.setattr(mesh, "process_count", lambda: 2)
+    monkeypatch.setattr(mesh, "process_index", lambda: 1)
+    monkeypatch.setattr(mesh, "process_allgather",
+                        lambda local: np.stack([np.zeros(4), np.asarray(local, float)]))
+    os.remove(tmp_path / "model" / "testres.json")
+    got = port_dd.main(argv + ["--result_dir", str(tmp_path / "second")])
+    assert joined == [1]
+    written = sorted(os.listdir(tmp_path / "second" / "model"))
+    assert written == ["NIND_S1_ISO800.png"]  # S1's second image; S2 has one
+    assert not (tmp_path / "model" / "testres.json").exists()
+    assert set(got) == {"mse", "ssim", "msssim"}
 
 
 def _float64_losses(a, b):

@@ -26,6 +26,16 @@ VARIANTS = [("Hul112Disc", 3), ("Hulb112Disc", 3), ("Hull112Disc", 3), ("Hulf112
 ATOL = 5e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Torch's default threads under the fast tier's parallel workers
+    oversubscribe the host: two a worker, as test_torch_train_gan_cli.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_nets():
     """JAX (params, BN state) of each variant from a seeded port init,

@@ -29,6 +29,16 @@ from nind_denoise_tpu_torch.pipeline import denoise_image_cli as port_image_cli
 from nind_denoise_tpu_torch.tools import fixtures
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Torch's default threads under the fast tier's parallel workers
+    oversubscribe the host: two a worker, as test_torch_train_gan_cli.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _psnr(a, b):
     d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
     return 10 * np.log10(1.0 / max((d ** 2).mean(), 1e-20))

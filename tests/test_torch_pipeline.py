@@ -79,6 +79,9 @@ tools = {"nind_denoise_tpu_torch.eval." + m for m in ("score", "denoise_dir", "g
     "nind_denoise_tpu_torch.tools." + m for m in (
         "crop_ds", "filter_dataset_by_iso", "make_dataset_crops_list", "pick_validation_set")}
 assert tools <= set(sys.modules)
+parallel = {"nind_denoise_tpu_torch.parallel." + m for m in (
+    "mesh", "sharded_engine", "batch_engine", "engine_pool", "spatial", "tensor_parallel")}
+assert parallel <= set(sys.modules)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "nind_denoise_tpu" or m.startswith("nind_denoise_tpu."))
 assert not bad, bad

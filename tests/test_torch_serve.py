@@ -2,7 +2,8 @@
 mode: the real server on a loopback port driven with urllib, held against
 the port's own engine and, for one RL request, against the JAX service;
 coalescing, backpressure, reload, prewarm, shutdown and the dispatcher's
-work queue."""
+work queue. The multi-device modes (shard, images) over two CPU devices
+are held to single mode."""
 
 import http.client
 import json
@@ -388,9 +389,27 @@ def test_close_never_blocks_and_later_submits_raise(ckpts):
 
 
 def test_unported_modes_and_missing_cuda(ckpts, monkeypatch):
+    """The multi-device modes over two CPU devices answer as single mode
+    does, bit for bit (shard: row bands; images: the pool, whose /stats
+    count requests per replica); without CUDA and without --device cpu
+    the service raises."""
+    data = _png(_img(150, 170, 8))
+    single = serve_mod.DenoiseService("UtNet", ckpts[0], **KW)
+    try:
+        ref = _decode(single.denoise_bytes(data, output="png", iterations=3))
+    finally:
+        single.close()
     for mode in ("shard", "images"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            serve_mod.DenoiseService("UtNet", ckpts[0], parallel=mode, **KW)
+        svc = serve_mod.DenoiseService("UtNet", ckpts[0], parallel=mode, devices=2, **KW)
+        try:
+            assert (svc.mode, svc.ndev) == (mode, 2)
+            got = _decode(svc.denoise_bytes(data, output="png", iterations=3))
+            assert np.array_equal(got, ref)
+            per = svc.snapshot_stats()["per_device"]
+            assert set(per) <= {"cpu#0", "cpu#1"}
+            assert sum(per.values()) == (1 if mode == "images" else 0)
+        finally:
+            svc.close()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_mod.DenoiseService("UtNet", ckpts[0], cs=104, ucs=88)
@@ -473,9 +492,19 @@ def test_main_devices_1_runs_and_2_raises(ckpts, monkeypatch):
     argv = ["--model_path", ckpts[0], "--cs", "104", "--ucs", "88",
             "--compute_dtype", "float32", "--device", "cpu"]
     prev = signal.getsignal(signal.SIGTERM)
+    modes = []
+    real = serve_mod.DenoiseService
+
+    def service(*a, **kw):
+        svc = real(*a, **kw)
+        modes.append((svc.mode, svc.ndev))
+        return svc
+
+    monkeypatch.setattr(serve_mod, "DenoiseService", service)
     try:
         serve_mod.main(argv + ["--devices", "1"])
+        serve_mod.main(argv + ["--devices", "2"])  # auto: row bands over both
+        serve_mod.main(argv + ["--devices", "2", "--parallel", "images"])
     finally:
         signal.signal(signal.SIGTERM, prev)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve_mod.main(argv + ["--devices", "2"])
+    assert modes == [("single", 1), ("shard", 2), ("images", 2)]

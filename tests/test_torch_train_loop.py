@@ -34,6 +34,16 @@ from nind_denoise_tpu_torch.train import loop
 TOL = 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Torch's default threads under the fast tier's parallel workers
+    oversubscribe the host: two a worker, as test_torch_train_gan_cli.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     base = tmp_path_factory.mktemp("train")

@@ -37,6 +37,16 @@ WEIGHTS = {"MSSSIM": 1, "L1": 0.5, "MSE": 0.5, "SSIM": 0.25}
 LOSS_CS, LR, BETA1 = 164, 3e-4, 0.75
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Torch's default threads under the fast tier's parallel workers
+    oversubscribe the host: two a worker, as test_torch_train_gan_cli.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batches(n, count, hw=168, seed=0):
     rng = np.random.default_rng(seed)
     out = []
