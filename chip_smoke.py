@@ -202,6 +202,29 @@ limit as nvidia-smi reports them):
    ``eval.denoise_dir`` as two processes (torchrun's variables, gloo) on
    seeded 512 x 768 scenes against one process (set means to 1e-6); K1,
    K2 and K3 launches counted on each path.
+30. dp_train: data-parallel training (``parallel/data_parallel.py``) as two
+   ranks on cuda:0 over gloo (a rehearsal on one card, not a scaling
+   figure), from the train phase's checkpoint at full width
+   (``train_conf_utnet_std.yaml``: funit 64, batch 30, 15 rows a rank, 184
+   px): one epoch with ``--weight_D1 0.2`` through the trainer's command
+   line (torchrun's variables), the two ranks' replicas bit-equal at the end
+   (the digest each rank logs), the same batches and decisions on both, K2
+   launched once a learn on each rank and once a validation pair on rank 0
+   alone, and K2 at a rank's learn input (15, 3, 188, 188) against its plain
+   version (fp32 bit-equal); then, in the same group, the same 30 crops
+   scattered from rank 0 (``DataParallel.batches``) and one cGAN batch from
+   the checkpoint and the gan phase's aged critic (Hul112Disc, d_funit 32)
+   held against one process's on the 30 crops at the gan phase's
+   tolerances: the critic's learn (its global BatchNorm in train mode,
+   targets drawn at the global shape and sliced, losses, ``d.loss`` and the
+   global prediction ranges, BN running stats, parameters) and the
+   generator step with the D1 term (the frozen critic's global statistics;
+   loss, metrics, gradient, parameters); a one-rank nccl group in this
+   process, in which a DP step at 15 rows is held against the plain step at
+   the train phase's tolerances and the gradient reducer is the identity;
+   the cGAN generator step's ms a rank against one process, and the
+   all-reduce's bytes and ms a step (gloo and nccl; nccl also in parts
+   against its bytes bound).
 
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
@@ -4090,6 +4113,336 @@ def phase_parallel(torch, card, tmp, kernel_mods, tif, ckpt):
     return by_path
 
 
+# -- data-parallel training ------------------------------------------------------
+
+DP_DEV = "cuda:0"  # both ranks of the dp_train phase: two ranks on one card
+
+# one rank of the dp_train phase: the trainer's command line (K2 counted as
+# it launches, its first batched input kept for the check against the plain
+# version); then, in the same group, the 30 crops scattered from rank 0
+# (``DataParallel.batches``) and one cGAN batch on the rank's rows
+# (``cgan_batch``: the critic's learn, then the generator step with the D1
+# term; rank 0 keeps both steps' results), and CUDA-event times of warm
+# generator steps and of the gradient all-reduce alone
+DP_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as S
+from nind_denoise_tpu_torch.ops import enc1
+from nind_denoise_tpu_torch.parallel import data_parallel, mesh
+from nind_denoise_tpu_torch.train import loop
+k2_in, ckpt, dck, d_funit, batch, out, dev = sys.argv[2:9]
+fn, seen = enc1.enc1, []
+def spy(*args, **kw):
+    if not seen and args[0].shape[0] > 1:
+        seen.append([a.detach().cpu() for a in args])
+    return fn(*args, **kw)
+enc1.enc1 = spy
+exp = loop.main(sys.argv[9:])
+launches = enc1.launches
+torch.save(seen[0] if seen else None, k2_in)
+
+dp = data_parallel.start(mesh.rank_device(dev))
+host = None
+if dp.rank == 0:
+    host = [tuple(t.permute(0, 2, 3, 1).numpy() for t in torch.load(batch))]
+(clean, noisy), = list(dp.batches(host, lambda: False))
+def replicas(m):
+    data_parallel.convert_batch_norm(m)
+    data_parallel.broadcast_module(m)
+res = S.cgan_batch(torch, ckpt, dck, int(d_funit), dp.device, clean, noisy, replicas)
+if dp.rank == 0:
+    torch.save(res[:3], out)
+state = res[4]
+step_ms = S.time_ms(torch, res[3], 5)
+reduce_ms = S.time_ms(torch, lambda: data_parallel.reduce_gradients(
+    state.opt.params, {"w": torch.zeros((), device=dp.device)}), 10)
+print("RESULT " + json.dumps({"experiment": exp, "enc1": launches, "backend": dp.backend,
+                              "rows": len(clean), "step_ms": step_ms, "reduce_ms": reduce_ms,
+                              "reduce_bytes": dp.reduce_bytes,
+                              "digest": data_parallel.digest(res[5])}))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(code, argvs, envs, timeout=300):
+    """``python -c code argv`` once per entry, all at once; each one's
+    RESULT line (a JSON object). Fails if any exits non-zero."""
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", code, ROOT, *a], env=e,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for a, e in zip(argvs, envs)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            print(text[-6000:], file=sys.stderr)
+        check(p.returncode == 0, f"child {r} exited {p.returncode}")
+    return [json.loads(next(line for line in t.splitlines() if line.startswith("RESULT "))[7:])
+            for t in texts], time.time() - t0
+
+
+def resumed_step(torch, ckpt, clean, noisy, lr):
+    """One fp32 step on the card from ``ckpt`` resumed as the trainer
+    resumes it: (loss, flat gradient, flat parameters, the step's closure)."""
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.train import loop, steps
+
+    tree = params_io.load_npz(ckpt)
+    model = params_io.load_generator(ckpt).to(DEV).train()
+    opt = steps.make_optimizer(model, lr, 0.75)
+    loop.GeneratorWrapper.restore_opt(opt, model, tree["opt"], tree["params"])
+    state = steps.TrainState(model, opt)
+    step = steps.make_generator_train_step(steps.plain_apply, {"MSSSIM": 1}, clean.shape[-1])
+    loss = float(step(state, clean, noisy)["weighted"])
+    flat = [torch.cat([f(p).flatten().double().cpu() for p in model.parameters()])
+            for f in (lambda p: p.grad, lambda p: p.detach())]
+    return loss, flat[0], flat[1], lambda: step(state, clean, noisy)
+
+
+def held_against(got, ref, lr):
+    """Step ``got`` = (loss, gradient, parameters) held to ``ref`` at the
+    train phase's tolerances: the record and whether it passes."""
+    pd = (got[2] - ref[2]).abs()
+    rec = {"loss_abs_diff": abs(got[0] - ref[0]),
+           "grad_norm_rel_diff": ((got[1] - ref[1]).norm() / ref[1].norm()).item(),
+           "param_max_abs_diff": pd.max().item(),
+           "param_share_over_lr_1pct": (pd > lr / 100).double().mean().item(),
+           "bit_equal": bool(got[2].equal(ref[2]))}
+    ok = (rec["loss_abs_diff"] <= TRAIN_LOSS_TOL and rec["grad_norm_rel_diff"] <= TRAIN_GRAD_TOL
+          and rec["param_max_abs_diff"] <= lr
+          and rec["param_share_over_lr_1pct"] <= TRAIN_PARAM_SHARE)
+    return rec, ok
+
+
+def cgan_batch(torch, gck, dck, d_funit, dev, clean, noisy, convert=lambda m: None):
+    """One cGAN batch on ``dev`` in which both networks learn, as the
+    trainer runs it: the critic (Hul112Disc resumed from ``dck``) learns on
+    the generator's forward (UtNet resumed from ``gck``) with seeded
+    targets (fake targets not noisy: a fresh wrapper's loss is 1), then the
+    generator steps with the D1 term of a second copy of the critic.
+    ``convert`` goes over each critic's module first (a DP rank's global
+    BatchNorm and broadcast). Returns the critic's step as
+    ``disc_step_on``'s tuple, its scalar loss, the generator's (metrics,
+    gradient, parameters), the generator step's closure, its state, and
+    the modules that learned."""
+    import types
+
+    from nind_denoise_tpu_torch.train import steps
+
+    state = resumed_generator(torch, gck, dev)
+    disc, fool = (disc_wrapper(dck, d_funit, dev) for _ in range(2))
+    for d in (disc, fool):
+        convert(d.model)
+    took, grads = [], []
+    d_step, opt_step = disc._step, disc.optimizer.step
+
+    def spy_step(*a, **k):
+        took.append(d_step(*a, **k))
+        return took[-1]
+
+    def spy_opt():  # the summed (in DP, reduced) gradients, freed after the update
+        grads.extend(p.grad.detach().cpu().double() for p in disc.optimizer.params)
+        return opt_step()
+
+    disc._step, disc.optimizer.step = spy_step, spy_opt
+    cs = clean.shape[-1]
+    disc.learn(clean, noisy, types.SimpleNamespace(
+        infer=infer_fn(torch, steps.plain_apply, state.model)), cs,
+        generator=torch.Generator(dev).manual_seed(11))
+    disc._step, disc.optimizer.step = d_step, opt_step
+    (loss_real, loss_fake, ranges), = took
+    d = (float(loss_real), float(loss_fake), ranges.tolist(),
+         {k: v.detach().cpu().double() for k, v in disc.model.state_dict().items()}, grads)
+    gstep = steps.make_generator_train_step(steps.plain_apply, GAN_WEIGHTS, cs,
+                                            disc_fns=(fool.pred_fn, None))
+    m = gstep(state, clean, noisy)
+    flat = [torch.cat([f(p).flatten().double().cpu() for p in state.model.parameters()])
+            for f in (lambda p: p.grad, lambda p: p.detach())]
+    return (d, disc.loss, ({k: float(v) for k, v in m.items()}, *flat),
+            lambda: gstep(state, clean, noisy), state, [state.model, disc.model])
+
+
+def phase_dp_train(torch, card, tmp, kernel_mods, batch=30, cs=184, lr=1e-4, d_funit=32,
+                   extra=()):
+    """Phase 30 (see the module doc). Returns the two ranks' launch counts.
+    ``DP_DEV`` is both ranks' device; ``extra`` goes to the trainer. The
+    held cGAN batch's critic is the gan phase's, aged ``GAN_DISC_STEPS``
+    steps (d_funit ``d_funit``)."""
+    import glob
+
+    import torch.distributed as dist
+
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.ops import enc1 as E
+    from nind_denoise_tpu_torch.parallel import data_parallel, mesh
+
+    t0 = time.time()
+    root, val = os.path.join(tmp, "train", "SYN_192_184"), os.path.join(tmp, "train", "val.yaml")
+    (exp,) = glob.glob(os.path.join(tmp, "train", "models", "*"))
+    ckpt = highest(exp, "generator")
+    dck = os.path.join(tmp, "gan", "held", f"discriminator_{GAN_DISC_STEPS}.npz")
+    last = params_io.load_npz(ckpt)["epoch"]
+    work = os.path.join(tmp, "dp")
+    os.makedirs(work)
+    clean, noisy = train_batch(torch, root, batch, cs)
+    bpath, held = os.path.join(work, "batch.pt"), os.path.join(work, "held.pt")
+    torch.save((clean, noisy), bpath)
+    cfg = os.path.join(ROOT, "nind_denoise_tpu_torch", "configs", "train_conf_utnet_std.yaml")
+    argv = ["--config", cfg, "--train_data", root, "--validation_set_yaml", val,
+            "--test_reserve", "0", "--threads", "1", "--device", DP_DEV,
+            "--weight_D1", "0.2", "--d_lr", "1e-4", "--g_model_path", ckpt,
+            "--epochs", str(last + 2), "--models_dpath", os.path.join(work, "models"), *extra]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE="2", LOCAL_WORLD_SIZE="2")
+    k2_in = [os.path.join(work, f"k2_rank{r}.pt") for r in range(2)]
+
+    # 1. two ranks on one card (gloo): one epoch of the cGAN through the
+    # trainer's command line, then the held cGAN batch and the times
+    ranks, ranks_s = run_children(
+        DP_CHILD, [[k2_in[r], ckpt, dck, str(d_funit), bpath, held, DP_DEV, *argv]
+                   for r in range(2)],
+        [dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(2)])
+    exps = [r["experiment"] for r in ranks]
+    check(os.path.basename(exps[1]) == os.path.basename(exps[0])[:249] + "_rank1",
+          f"dp_train: experiments {exps}")
+    logs = []
+    for e in exps:
+        with open(os.path.join(e, "train.log")) as f:
+            logs.append(f.read())
+    for r, text in enumerate(logs):
+        check(text.startswith(f"Data-parallel over 2 processes on gloo: rank {r} on {DP_DEV}, "
+                              f"{batch // 2} of each batch's {batch} rows"),
+              f"dp_train: rank {r}'s first line {text.splitlines()[0]}")
+    digests = [re.findall(r"Data-parallel replica digest: (\w+)", t) for t in logs]
+    check(len(digests[0]) == 1 and digests[0] == digests[1],
+          f"dp_train: the ranks' replicas differ: {digests}")
+    check(ranks[0]["digest"] == ranks[1]["digest"],
+          f"dp_train: the ranks' replicas differ after the held batch: {ranks}")
+    lines = [[ln for ln in t.splitlines() if re.match(r"Epoch \d+ batch \d+/", ln)]
+             for t in logs]
+    learns = sum("loss D1: " in ln for ln in lines[0])
+    check(lines[0] == lines[1] and learns > 0,
+          f"dp_train: the ranks' batches differ or no discriminator step: {lines}")
+    n_val = 3
+    k2 = [r["enc1"] for r in ranks]
+    check(k2 == [learns + n_val * 2, learns],
+          f"dp_train: K2 launches {k2}, expected {learns} learns a rank and "
+          f"{n_val} x 2 validations on rank 0")
+    check(not [f for f in os.listdir(exps[1]) if f.endswith(".npz")]
+          and os.path.exists(os.path.join(exps[0], f"generator_{last + 1}.npz")),
+          f"dp_train: checkpoints {os.listdir(exps[0])} / {os.listdir(exps[1])}")
+    args = torch.load(k2_in[0])
+    check(args is not None and args[0].shape[0] == batch // 2, f"dp_train: K2 input {args}")
+    with torch.inference_mode():
+        k2_rec = enc1_record(torch, E, [a.to(DEV) for a in args], 10)
+    check(k2_rec["max_abs_err"] == 0, f"dp_train: K2 fp32 not bit-equal: {k2_rec}")
+
+    # 2. the DP cGAN batch against one process's on the same 30 crops, at
+    # the gan phase's tolerances
+    (dp_d, dp_dloss, dp_g) = torch.load(held)
+    cd, nd = clean.to(DEV), noisy.to(DEV)
+    one = cgan_batch(torch, ckpt, dck, d_funit, DEV, cd, nd)
+    (ref_d, ref_dloss, ref_g), one_step = one[:3], one[3]
+    d_rec = dict(step_vs([dp_d], [ref_d]), d_loss_abs_diff=abs(dp_dloss - ref_dloss),
+                 ranges_max_abs_diff=max(abs(a - b) for a, b in zip(dp_d[2], ref_d[2])),
+                 d_loss_one_process=ref_dloss, d_loss_dp=dp_dloss)
+    check(d_rec["loss_abs_diff"] <= GAN_LOSS_TOL and d_rec["d_loss_abs_diff"] <= GAN_LOSS_TOL
+          and d_rec["ranges_max_abs_diff"] <= GAN_LOSS_TOL
+          and d_rec["bn_stat_rel_diff"] <= GAN_BN_TOL and d_rec["param_max_abs_diff"] <= 1e-4
+          and d_rec["param_share_over_lr_1pct"] <= TRAIN_PARAM_SHARE,
+          f"dp_train: the DP critic's learn against one process {d_rec}")
+    g_rec, ok = held_against((dp_g[0]["weighted"], *dp_g[1:]), (ref_g[0]["weighted"], *ref_g[1:]),
+                             lr)
+    g_rec.update(metrics_dp=dp_g[0], metrics_one_process=ref_g[0],
+                 metrics_max_abs_diff=max(abs(dp_g[0][k] - v) for k, v in ref_g[0].items()))
+    check(ok and set(dp_g[0]) == set(ref_g[0]) and "D1" in ref_g[0]
+          and g_rec["metrics_max_abs_diff"] <= GAN_LOSS_TOL,
+          f"dp_train: the DP generator step with D1 against one process {g_rec}")
+    one_ms = time_ms(torch, one_step, 5)
+    del one, one_step
+
+    # 3. a one-rank nccl group in this process: the DP step at 15 rows against
+    # the plain step, and the gradient reducer on the card
+    t1 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        torch.cuda.set_device(0)
+        dp = data_parallel.start(torch.device("cuda", 0))
+        check(dp.backend == "nccl", f"dp_train: one-rank group on {dp.backend}")
+        got = resumed_step(torch, ckpt, cd[:batch // 2], nd[:batch // 2], lr)
+        data_parallel.stop()
+        plain = resumed_step(torch, ckpt, cd[:batch // 2], nd[:batch // 2], lr)
+        nccl_step, ok = held_against(got[:3], plain, lr)
+        check(ok, f"dp_train: the one-rank nccl step against the plain step {nccl_step}")
+        dp = data_parallel.start(torch.device("cuda", 0))
+        model = params_io.load_generator(ckpt).to(DEV)
+        params = list(model.parameters())
+        for p in params:
+            p.grad = torch.randn_like(p)
+        before = [p.grad.clone() for p in params]
+        w = torch.tensor(0.5, device=DEV)
+        out = data_parallel.reduce_gradients(params, {"w": w})
+        check(all(torch.equal(p.grad, b) for p, b in zip(params, before))
+              and float(out["w"]) == 0.5, "dp_train: a one-rank reduce changed the gradients")
+        nccl_ms = time_ms(torch, lambda: data_parallel.reduce_gradients(params, {"w": w}), 20)
+        nccl_bytes = dp.reduce_bytes
+        # the reducer's parts, each timed alone on the same buffer
+        grads = [p.grad for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        pieces = [v.view_as(g) for g, v in zip(grads, flat.split([g.numel() for g in grads]))]
+        nccl_parts = {
+            "cat": time_ms(torch, lambda: torch.cat([g.reshape(-1) for g in grads]), 20),
+            "all_reduce_": time_ms(torch, lambda: mesh.all_reduce_(flat, "sum", dp.group), 20),
+            "div_": time_ms(torch, lambda: flat.div_(1.0), 20),
+            "copy_back": time_ms(torch, lambda: torch._foreach_copy_(grads, pieces), 20)}
+        # cat, div_ and the copy back each read and write the buffer once
+        nccl_bound = 6 * nccl_bytes / PEAK_BYTES * 1e3
+    finally:
+        data_parallel.stop()
+        dist.destroy_process_group()
+    del model, params, before, cd, nd, grads, flat, pieces
+    launches = {name: 0 for name in kernel_mods}
+    launches["enc1"] = sum(k2)
+    emit(card, phase="dp_train", devices="cuda:0 twice: a rehearsal on one card, not a "
+         "scaling figure", backend="gloo", config="train_conf_utnet_std.yaml + --weight_D1 0.2",
+         batch=batch, rows_a_rank=batch // 2, cs=cs, resumed_from=os.path.basename(ckpt),
+         epoch=last + 1, batches=len(lines[0]), d_learns=learns, enc1_launches_by_rank=k2,
+         replica_digests_equal=True, ranks_s=ranks_s, enc1_input=list(args[0].shape),
+         enc1_fp32=k2_rec, held_disc_learn=d_rec, held_gen_step_with_d1=g_rec,
+         held_critic=f"{os.path.relpath(dck, tmp)}, d_funit {d_funit}",
+         tolerance={"gen": {"loss": TRAIN_LOSS_TOL, "grad_norm_rel": TRAIN_GRAD_TOL,
+                            "param_max": lr, "param_share_over_lr_1pct": TRAIN_PARAM_SHARE,
+                            "metrics": GAN_LOSS_TOL},
+                    "disc": {"losses_d_loss_ranges": GAN_LOSS_TOL, "bn_stat_rel": GAN_BN_TOL,
+                             "param_max": 1e-4, "param_share_over_lr_1pct": TRAIN_PARAM_SHARE}},
+         gen_step_d1_ms_a_rank=[r["step_ms"] for r in ranks],
+         gen_step_d1_ms_one_process=one_ms,
+         allreduce_gloo={"bytes": ranks[0]["reduce_bytes"],
+                         "ms": [r["reduce_ms"] for r in ranks]},
+         nccl_one_rank={"step_vs_plain": nccl_step, "allreduce_bytes": nccl_bytes,
+                        "allreduce_ms": nccl_ms, "allreduce_parts_ms": nccl_parts,
+                        "allreduce_bound_ms": nccl_bound, "s": time.time() - t1},
+         phase_s=time.time() - t0)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4142,6 +4495,7 @@ def main() -> int:
                                              **RELIC_GAN)
         by_path["trace"] = phase_trace(torch, card, tmp, kernel_mods, tif, ckpt)
         by_path.update(phase_parallel(torch, card, tmp, kernel_mods, tif, ckpt))
+        by_path["dp_train"] = phase_dp_train(torch, card, tmp, kernel_mods)
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

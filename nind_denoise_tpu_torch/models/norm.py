@@ -15,11 +15,15 @@ stack. ``frozen=True`` is the cGAN's fooling term (a discriminator's
 changes no buffer, and every parameter is read detached, so no gradient
 reaches the module, where the JAX package applies ``train=True`` and drops
 the new state. Without ``frozen`` the layer is the module's own forward.
+A module may bring its own statistics rule as a ``normalize`` method with
+``F.batch_norm``'s arguments (``normalize_fn``): a data-parallel run's
+``GlobalBatchNorm2d`` takes the global batch's, in its forward and in the
+frozen path alike.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,12 +34,19 @@ def detached(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.detach()
 
 
+def normalize_fn(m: nn.BatchNorm2d) -> Callable[..., torch.Tensor]:
+    """``m``'s batch-norm function, with ``F.batch_norm``'s arguments: its
+    own ``normalize`` where it has one, else ``F.batch_norm``."""
+    return getattr(m, "normalize", F.batch_norm)
+
+
 def batch_norm(m: nn.BatchNorm2d, x: torch.Tensor, frozen: bool = False) -> torch.Tensor:
     """``m`` on ``x``; ``frozen``: the batch's statistics, no running-stat
     update, the affine parameters detached."""
     if not frozen:
         return m(x)
-    return F.batch_norm(x, None, None, detached(m.weight), detached(m.bias), True, 0.0, m.eps)
+    return normalize_fn(m)(x, None, None, detached(m.weight), detached(m.bias), True, 0.0,
+                           m.eps)
 
 
 def layer(m: nn.Module, x: torch.Tensor, frozen: bool = False) -> torch.Tensor:

@@ -23,7 +23,9 @@ normalize and update the running stats; in eval mode the running stats
 normalize; ``frozen=True`` normalizes by the batch's statistics in either
 mode and changes no buffer (the JAX trainer's ``infer``, which applies
 ``train=True`` and drops the new state, and the recomputation under
-``--remat``, which must not update the stats a second time).
+``--remat``, which must not update the stats a second time). In a
+data-parallel run both take the global batch's statistics (the module's
+own ``normalize``, ``norm.normalize_fn``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import maxpool2x
+from .norm import normalize_fn
 
 CHANNELS = (64, 128, 256, 512, 512)
 
@@ -122,8 +125,8 @@ class UNet(nn.Module):
             # the batch's statistics, updating copies: the same op as a
             # train-mode forward, so a recomputation saves what it saved
             mean, var = mean.clone(), var.clone()
-        y = F.batch_norm(xf, mean, var, m.weight, m.bias, self.training or frozen,
-                         m.momentum, m.eps)
+        y = normalize_fn(m)(xf, mean, var, m.weight, m.bias, self.training or frozen,
+                            m.momentum, m.eps)
         return y.to(x.dtype)
 
     def _double(self, block: DoubleConv, x: torch.Tensor, frozen: bool) -> torch.Tensor:

@@ -14,15 +14,24 @@ takes the first ``n`` local devices; here a "mesh" is a list of
 * an explicit list (``[cuda:0, cuda:0]`` rehearses two devices on one
   card) is taken as it is.
 
-``shard_batch``/``replicate_tree``/``data_sharding`` have no counterpart:
-the engines put one copy of the model on each distinct device
-(``replicate``) and hand each device its own rows or images.
+``shard_batch``/``replicate_tree``/``data_sharding`` have no counterpart
+here: the inference engines put one copy of the model on each distinct
+device (``replicate``) and hand each device its own rows or images, and
+data-parallel training runs one process a device
+(``parallel/data_parallel.py``).
 
 Processes: ``init_distributed`` joins a ``torch.distributed`` process group
-on ``gloo`` (host data only: the inference front ends shard files across
-processes and gather per-set sums, no tensor collective runs on the card).
-It reads torchrun's variables (``MASTER_ADDR``, ``MASTER_PORT``,
-``WORLD_SIZE``, ``RANK``) where JAX reads ``JAX_COORDINATOR_ADDRESS``.
+on ``gloo`` (the inference front ends shard files across processes and
+gather per-set sums on the host; data-parallel training opens its own
+``nccl`` group where it can, ``data_parallel.start``). It reads torchrun's
+variables (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``)
+where JAX reads ``JAX_COORDINATOR_ADDRESS``, or JAX's three flags
+(``--coordinator host:port --num_processes N --process_id i``).
+``rank_device`` is a training rank's device, and the small collectives
+(``all_reduce_`` in place, ``all_reduce``, ``all_min``/``all_max``,
+``broadcast0``, ``broadcast_object``) take tensors on that device: a
+``gloo`` group moves a CUDA tensor through the host, an ``nccl`` group
+takes no CPU tensor.
 """
 
 from __future__ import annotations
@@ -104,6 +113,13 @@ def _coordinator(address: Optional[str]) -> Optional[str]:
     return address if "://" in address else f"tcp://{address}"
 
 
+def planned_world(num_processes: Optional[int] = None) -> int:
+    """The world size a join would take: ``num_processes``, else
+    ``WORLD_SIZE``, else 1 (readable before anything joins)."""
+    return int(os.environ.get("WORLD_SIZE", "1")) if num_processes is None \
+        else int(num_processes)
+
+
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
@@ -120,8 +136,7 @@ def init_distributed(coordinator: Optional[str] = None,
 
     if dist.is_available() and dist.is_initialized():
         return True
-    world = int(os.environ.get("WORLD_SIZE", "1")) if num_processes is None \
-        else int(num_processes)
+    world = planned_world(num_processes)
     rank = int(os.environ.get("RANK", "0")) if process_id is None else int(process_id)
     addr = _coordinator(coordinator)
     if world <= 1:
@@ -132,6 +147,23 @@ def init_distributed(coordinator: Optional[str] = None,
     dist.init_process_group("gloo", init_method=addr, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return True
+
+
+def rank_device(device=None) -> torch.device:
+    """A training rank's device. ``device`` is ``--device``: the CPU, or a
+    GPU named with its index, is taken as given (``cuda:0`` on every rank
+    rehearses several ranks on one card); plain CUDA is ``cuda:{LOCAL_RANK}``
+    (torchrun's variable; without it, the rank modulo this host's GPUs).
+    One process keeps ``device`` as it is."""
+    base = resolve_device(device)
+    if base.type == "cpu" or base.index is not None or process_count() <= 1:
+        return base
+    have = torch.cuda.device_count()
+    local = int(os.environ.get("LOCAL_RANK", process_index() % max(have, 1)))
+    if local >= have:
+        raise ValueError(f"rank {process_index()}: LOCAL_RANK {local} but this host has "
+                         f"{have} GPUs")
+    return torch.device("cuda", local)
 
 
 def _joined() -> bool:
@@ -172,6 +204,65 @@ def process_allgather(local: np.ndarray) -> np.ndarray:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, t)
     return torch.stack(parts).numpy()
+
+
+def _through(t: torch.Tensor, group, op: Callable[[torch.Tensor], object]) -> torch.Tensor:
+    """``op(t)`` in place on ``group``'s backend (a ``gloo`` group takes a
+    CUDA tensor through a host copy); returns ``t``."""
+    import torch.distributed as dist
+
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        host = t.cpu()
+        op(host)
+        return t.copy_(host)
+    op(t)
+    return t
+
+
+def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """``t`` reduced over ``group`` (``sum``, ``min`` or ``max``) in place;
+    the identity on one process. ``t`` is contiguous."""
+    import torch.distributed as dist
+
+    if not _joined():
+        return t
+    red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}[op]
+    return _through(t, group, lambda x: dist.all_reduce(x, red, group=group))
+
+
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """``t`` reduced over ``group``, as a new tensor: ``t`` is not modified."""
+    return all_reduce_(t.clone(memory_format=torch.contiguous_format), op, group)
+
+
+def all_min(t: torch.Tensor, group=None) -> torch.Tensor:
+    return all_reduce(t, "min", group)
+
+
+def all_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    return all_reduce(t, "max", group)
+
+
+def broadcast0(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Rank 0's ``t`` on every process, in place; returns ``t``."""
+    import torch.distributed as dist
+
+    if not _joined():
+        return t
+    src = dist.get_global_rank(group, 0) if group is not None else 0
+    return _through(t, group, lambda x: dist.broadcast(x, src, group=group))
+
+
+def broadcast_object(obj):
+    """Rank 0's picklable ``obj`` on every process (over the default
+    group); the identity on one process."""
+    import torch.distributed as dist
+
+    if not _joined():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, 0)
+    return box[0]
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int, axis: int = 0):

@@ -133,7 +133,12 @@ class DiscriminatorWrapper:
               generator: Optional[torch.Generator] = None, draws=None) -> None:
         """One discriminator step on an NCHW batch: the generator's forward
         on ``noisy`` (``gen.infer``, no autograd), clipped and cropped, then
-        the step; one host read of its losses and prediction ranges."""
+        the step; one host read of its losses and prediction ranges. In a
+        data-parallel run the batch is the rank's rows, the targets are drawn
+        at the global predictions' shape from ``generator`` (the same draws on
+        every rank) and sliced, and the losses and ranges are reduced over
+        the global batch before the scalar loss, so ``loss`` (and the D/G
+        schedule drawn from it) is the same on every rank."""
         clean_c = steps.center_crop(clean, loss_cs)
         noisy_c = steps.center_crop(noisy, loss_cs)
         generated_c = steps.center_crop(torch.clamp(gen.infer(noisy), 0, 1), loss_cs)

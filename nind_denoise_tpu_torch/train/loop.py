@@ -1,6 +1,7 @@
-"""nn_train on one GPU — train a denoising generator (UtNet, UNet,
-Hulb128Net or Hulbs128Net), alone or as a cGAN against one or two
-discriminators (the Hul family, PatchGAN, the pixel critic).
+"""nn_train on one GPU, or data-parallel on several — train a denoising
+generator (UtNet, UNet, Hulb128Net or Hulbs128Net), alone or as a cGAN
+against one or two discriminators (the Hul family, PatchGAN, the pixel
+critic).
 
 The counterpart of ``nind_denoise_tpu/train/loop.py`` (the reference's
 nn_train.py:118-448): layered YAML config
@@ -35,7 +36,23 @@ anything is written (``check_ported``): a pix2pix critic with
 ``--not_conditional`` and ``MultiscaleDiscriminator`` (either fails at its
 first step in JAX), HunkyDisc below 256 px of ``--loss_cs`` (its
 prediction map is empty there), the registry's other generators (as in
-JAX), and what is not ported yet: multi-host runs (ROADMAP item 9.2).
+JAX), and, with more than one process, a batch whose microbatches do not
+split into one equal part a process.
+
+Several processes train data-parallel, one a device, as the JAX trainer
+does over its ``('data',)`` mesh (``parallel/data_parallel.py``). They
+join from torchrun's variables (``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) or from JAX's three flags
+(``--coordinator host:port --num_processes N --process_id i``); each rank
+trains on ``cuda:{LOCAL_RANK}``, or on the CPU under ``--device cpu``, over
+``nccl`` when every rank has a GPU of its own and ``gloo`` otherwise (the
+first line of ``train.log`` says which). Rank 0 loads the global batch and
+scatters it; the gradients, the metrics and every BatchNorm's statistics
+are the global batch's; every decision of the loop (the D/G schedule, the
+LR decay, the time limit, a shutdown signal to any rank) is taken from a
+value all ranks agree on. Rank 0 alone validates, runs the whole-image
+test, writes checkpoints and image dumps and prunes them; the other ranks
+log to ``<experiment>_rank{i}``.
 
 UNet trains with BatchNorm in train mode (batch statistics, running stats
 updated; microbatch by microbatch under ``--grad_accum``), validates in
@@ -50,6 +67,9 @@ UNet warns and trains in float32, as in JAX.
         --train_data <cropped dir> --validation_set_yaml <pairs.yaml> \\
         --models_dpath <dir> [--weight_D1 0.2 --d_lr 1e-4] [--device_cache N] \\
         [--compute_dtype bfloat16] [--device cpu]
+    torchrun --nproc_per_node 8 -m nind_denoise_tpu_torch.train.loop ...
+    python -m nind_denoise_tpu_torch.train.loop ... \\
+        --coordinator host:port --num_processes N --process_id i
 """
 
 from __future__ import annotations
@@ -57,6 +77,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import datetime
+import math
 import os
 import random
 import shutil
@@ -74,6 +95,7 @@ import yaml
 from ..engine.tile_engine import _tf32
 from ..models import GENERATORS, ZOO_DISCS, get_network, is_discriminator, params_io
 from ..models.relics import HunkyDisc
+from ..parallel import data_parallel, mesh
 from ..utils import conf, json_saver
 from ..utils.device import resolve_device
 from ..utils.log import Printer
@@ -187,11 +209,14 @@ def build_parser():
                         "negative, and a randomly initialized generator can "
                         "start in that dead zone. Default 0 = reference "
                         "parity.")
-    p.add_argument("--coordinator", help="multi-host: not ported (ROADMAP item 9.2)")
+    p.add_argument("--coordinator",
+                   help="data-parallel over processes: rank 0's host:port "
+                        "(torchrun's MASTER_ADDR/MASTER_PORT where unset)")
     p.add_argument("--num_processes", type=int,
-                   help="multi-host: not ported (ROADMAP item 9.2)")
+                   help="data-parallel: the number of processes (WORLD_SIZE "
+                        "where unset)")
     p.add_argument("--process_id", type=int,
-                   help="multi-host: not ported (ROADMAP item 9.2)")
+                   help="data-parallel: this process's rank (RANK where unset)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu when asked)")
     return p
@@ -218,8 +243,9 @@ def check_ported(args) -> None:
     package), ``MultiscaleDiscriminator`` (the step takes one prediction
     map), HunkyDisc below 256 px of loss crop (its prediction map is empty:
     the JAX package's step takes the mean of no element there), a generator
-    the reference never trains, and what is queued in ROADMAP.md
-    (multi-host: item 9.2)."""
+    the reference never trains, and more than one process with a batch
+    that data parallelism cannot split (``data_parallel.enabled``), where
+    the JAX trainer would train one copy a process instead."""
     for flag, weight, network, uncond in (
             ("--d_network", args.weight_D1, args.d_network, args.not_conditional),
             ("--d2_network", args.weight_D2, args.d2_network, args.not_conditional_2)):
@@ -251,10 +277,13 @@ def check_ported(args) -> None:
             f"{args.g_network} is "
             + ("a discriminator" if is_discriminator(args.g_network)
                else "registry/inference-only"))
-    if args.coordinator or args.num_processes or args.process_id is not None:
-        raise NotImplementedError(
-            "--coordinator/--num_processes/--process_id: multi-host training "
-            "is not ported yet (ROADMAP item 9.2)")
+    world = mesh.planned_world(args.num_processes)
+    if world > 1 and not data_parallel.enabled(world, args.batch_size, args.grad_accum):
+        raise ValueError(
+            f"{world} processes with --batch_size {args.batch_size} and --grad_accum "
+            f"{args.grad_accum}: data-parallel training splits every microbatch into "
+            f"{world} equal parts, so the batch must be a multiple of "
+            f"{world * args.grad_accum}")
 
 
 def get_test_reserve_list(test_reserve):
@@ -532,11 +561,43 @@ def test_generator(gen, test_set, output_to_dir: Optional[str] = None) -> float:
     return statistics.mean(losses)
 
 
+def on_chief(dp, fn) -> Optional[float]:
+    """``fn()`` (a float or None) on rank 0 alone, outside the data-parallel
+    reductions; its value on every rank. ``fn()`` itself without ``dp``."""
+    if dp is None:
+        return fn()
+    val = None
+    if dp.rank == 0:
+        with data_parallel.local():
+            val = fn()
+    t = torch.tensor([math.nan if val is None else val], dtype=torch.float64, device=dp.device)
+    got = float(mesh.broadcast0(t, dp.group).item())
+    return None if math.isnan(got) else got
+
+
 def main(argv=None):
     """Train; returns the experiment directory."""
     args = build_parser().parse_args(argv)
     check_ported(args)
-    device = resolve_device(args.device)
+    dp = None
+    if mesh.planned_world(args.num_processes) > 1:
+        mesh.init_distributed(coordinator=args.coordinator, num_processes=args.num_processes,
+                              process_id=args.process_id)
+        device = mesh.rank_device(args.device)
+        dp = data_parallel.start(device, args.grad_accum)
+    else:
+        device = resolve_device(args.device)
+    # only the chief writes checkpoints, image dumps and prunes them; the
+    # other ranks keep their log and trainres.json in <expname>_rank{i}
+    is_chief = dp is None or dp.rank == 0
+    try:
+        return _train(args, device, dp, is_chief)
+    finally:
+        if dp is not None:
+            data_parallel.stop()
+
+
+def _train(args, device, dp, is_chief):
     debug_options = [o for o in args.debug_options if o in DEBUG_OPTIONS]
 
     weights = {"SSIM": args.weight_SSIM or 0, "MSSSIM": args.weight_MSSSIM or 0,
@@ -558,9 +619,19 @@ def main(argv=None):
 
     expname = (datetime.datetime.now().isoformat()[:-10] + "_"
                + "_".join(sys.argv).replace("/", "-"))[:255]
+    if dp is not None:
+        # the chief's name: two ranks may straddle a minute, and their argv differ
+        expname = mesh.broadcast_object(expname)
+        if not is_chief:  # the suffix survives the 255-character cut
+            suffix = f"_rank{dp.rank}"
+            expname = expname[:255 - len(suffix)] + suffix
     model_dir = os.path.join(args.models_dpath, expname)
     os.makedirs(model_dir, exist_ok=True)
     p = Printer(file_path=os.path.join(model_dir, "train.log"))
+    if dp is not None:
+        p.print(f"Data-parallel over {dp.world} processes on {dp.backend}: rank {dp.rank} "
+                f"on {device}, {args.batch_size // dp.world} of each batch's "
+                f"{args.batch_size} rows")
     jsonsaver = json_saver.JSONSaver(os.path.join(model_dir, "trainres.json"),
                                      step_type="epoch")
     p.print(args)
@@ -616,6 +687,9 @@ def main(argv=None):
             p.print("Warning: --device_cache is incompatible with "
                     "--clean_data_ratio (host-side batch mixing); using the "
                     "host loader")
+        elif dp is not None:  # the data-parallel predicate, as the scatter's
+            p.print("Warning: --device_cache currently targets single-device "
+                    "runs; data-parallel meshes keep the host loader")
         elif not dc_mod.supports(dataset):
             p.print("Warning: --device_cache cannot express this dataset's "
                     "host-side augmentations (JPEG/noise); using the host "
@@ -663,6 +737,11 @@ def main(argv=None):
     disc_fns = [None, None]
     for d in discs:
         disc_fns[0 if d.wname == "D1" else 1] = d.pred_fn
+    if dp is not None:
+        # replicas that start alike, normalizing by the global batch
+        for m in [gen.state.model] + [d.model for d in discs]:
+            data_parallel.convert_batch_norm(m)
+            data_parallel.broadcast_module(m)
 
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         sys.exit(f"error: --grad_accum {args.grad_accum} must divide "
@@ -684,9 +763,9 @@ def main(argv=None):
         validation_set = ds_mod.ValidationDataset(args.validation_set_yaml,
                                                   cs=args.cs)
         val_dir = (lambda e: os.path.join(model_dir, "val", str(e))) \
-            if "output_val_images" in debug_options else (lambda e: None)
-        validation_loss = validate_generator(eval_step, gen, validation_set,
-                                             val_dir(0))
+            if "output_val_images" in debug_options and is_chief else (lambda e: None)
+        validation_loss = on_chief(dp, lambda: validate_generator(
+            eval_step, gen, validation_set, val_dir(0)))
         jsonsaver.add_res(0, {"validation_loss": validation_loss})
         p.print(f"Validation loss: {validation_loss}")
     else:
@@ -695,7 +774,7 @@ def main(argv=None):
         test_set = ds_mod.TestDenoiseDataset(data_dpath=args.orig_data,
                                              sets=args.test_reserve)
         test_dir = (lambda e: os.path.join(model_dir, "testimages", str(e))) \
-            if "output_test_images" in debug_options else (lambda e: None)
+            if "output_test_images" in debug_options and is_chief else (lambda e: None)
 
     with open(os.path.join(model_dir, "config.yaml"), "w") as fp:
         yaml.dump({k: v for k, v in vars(args).items()}, fp)
@@ -709,6 +788,25 @@ def main(argv=None):
     sched_rng = random.Random(args.seed)
     # the discriminators' fuzzy targets and the device cache's augmentations
     draws = torch.Generator(device).manual_seed(args.seed)
+
+    def host_batches():
+        """The global batches (NHWC numpy) with their clean-data rows."""
+        nonlocal clean_iter
+        for clean_b, noisy_b in loader:
+            if bs_clean > 0:
+                try:
+                    cb = next(clean_iter)
+                except StopIteration:
+                    p.print("Reloading clean_dataloader")
+                    clean_iter = iter(clean_loader)
+                    cb = next(clean_iter)  # non-empty: guarded at setup
+                clean_b = np.concatenate([clean_b, cb[0]])
+                noisy_b = np.concatenate([noisy_b, cb[1]])
+            yield clean_b, noisy_b
+
+    def save_generator(epoch, checkpointer=None):
+        if is_chief:
+            gen.save_model(model_dir, epoch, checkpointer=checkpointer)
 
     shutdown = GracefulShutdown()
     shutdown.install()
@@ -725,26 +823,19 @@ def main(argv=None):
             if device_cache is not None:
                 batch_iter = device_cache.epoch_batches(args.batch_size, draws)
                 n_batches = len(device_cache) // args.batch_size
-            else:
-                batch_iter = loader
+            elif dp is not None:
+                # rank 0's global batch scattered; the stop agreed each batch
+                batch_iter = dp.batches(host_batches() if is_chief else None,
+                                        lambda: shutdown.requested)
                 n_batches = len(loader)
-            for iteration, (clean_b, noisy_b) in enumerate(batch_iter, 1):
-                if shutdown.requested:
+            else:
+                batch_iter = ((to_device(c, device), to_device(n, device))
+                              for c, n in host_batches())
+                n_batches = len(loader)
+            for iteration, (clean, noisy) in enumerate(batch_iter, 1):
+                if dp is None and shutdown.requested:
                     break
-                if bs_clean > 0:
-                    try:
-                        cb = next(clean_iter)
-                    except StopIteration:
-                        p.print("Reloading clean_dataloader")
-                        clean_iter = iter(clean_loader)
-                        cb = next(clean_iter)  # non-empty: guarded at setup
-                    clean_b = np.concatenate([clean_b, cb[0]])
-                    noisy_b = np.concatenate([noisy_b, cb[1]])
                 summary = f"Epoch {epoch} batch {iteration}/{n_batches}: "
-                if device_cache is None:
-                    clean, noisy = to_device(clean_b, device), to_device(noisy_b, device)
-                else:
-                    clean, noisy = clean_b, noisy_b
 
                 # ---- stochastic D/G scheduling (nn_train.py:325-350) ----
                 d_learns = []
@@ -794,36 +885,37 @@ def main(argv=None):
                     p.print(summary)
                 batches_done = iteration
 
-            if shutdown.requested:
+            if dp.stopped if dp is not None else shutdown.requested:
                 # preemption checkpoint: --g_model_path <file> resumes at
                 # epoch+1 (the partial epoch counts as done)
                 p.print(f"Graceful shutdown: checkpointing epoch {epoch} "
                         f"after {batches_done}/{n_batches} batches")
-                for d in discs:
-                    d.save_model(model_dir, epoch, d.keyword)
-                gen.save_model(model_dir, epoch)
-                p.print(f"Checkpoint saved; resume with --g_model_path "
-                        f"{os.path.join(model_dir, f'generator_{epoch}.npz')}")
+                if is_chief:
+                    for d in discs:
+                        d.save_model(model_dir, epoch, d.keyword)
+                    gen.save_model(model_dir, epoch)
+                    p.print(f"Checkpoint saved; resume with --g_model_path "
+                            f"{os.path.join(model_dir, f'generator_{epoch}.npz')}")
                 return model_dir
 
-            # retention must see a consistent directory: wait for the
-            # previous epoch's checkpoint write before scanning
-            ckpt_writer.join()
-            removed = delete_outperformed_models(
-                model_dir, keepers=jsonsaver.get_best_steps(), model_t="generator",
-                keep_all_output_images="keep_all_output_images" in debug_options)
-            if removed:
-                p.print(f"delete_outperformed_models removed {removed}")
+            if is_chief:
+                # retention must see a consistent directory: wait for the
+                # previous epoch's checkpoint write before scanning
+                ckpt_writer.join()
+                removed = delete_outperformed_models(
+                    model_dir, keepers=jsonsaver.get_best_steps(), model_t="generator",
+                    keep_all_output_images="keep_all_output_images" in debug_options)
+                if removed:
+                    p.print(f"delete_outperformed_models removed {removed}")
 
             if args.validation_interval > 0 and epoch % args.validation_interval == 0:
-                validation_loss = validate_generator(eval_step, gen,
-                                                     validation_set,
-                                                     val_dir(epoch))
+                validation_loss = on_chief(dp, lambda: validate_generator(
+                    eval_step, gen, validation_set, val_dir(epoch)))
                 jsonsaver.add_res(epoch, {"validation_loss": validation_loss},
                                   write=False)
                 p.print(f"Validation loss: {validation_loss}")
             if args.test_interval > 0 and epoch % args.test_interval == 0:
-                test_loss = test_generator(gen, test_set, test_dir(epoch))
+                test_loss = on_chief(dp, lambda: test_generator(gen, test_set, test_dir(epoch)))
                 jsonsaver.add_res(epoch, {"test_loss": test_loss}, write=False)
 
             if defer_metrics and g_count:
@@ -854,7 +946,12 @@ def main(argv=None):
                     avg_d = statistics.mean(loss_d_lists[di])
                     p.print(f"Discriminator{di + 1} average normalized loss: {avg_d}")
                     disc_lrs[di] = d.update_learning_rate(avg_d)
-                    d.save_model(model_dir, epoch, d.keyword)
+                    if is_chief:
+                        d.save_model(model_dir, epoch, d.keyword)
+            if dp is not None:
+                # the replicas' agreement, one line a rank to compare
+                p.print("Data-parallel replica digest: " + data_parallel.digest(
+                    [gen.state.model] + [d.model for d in discs]))
             if device_cache is not None:
                 # upload the background-refreshed block (if ready) and start
                 # the next re-draw; a slow host leaves the augmentations
@@ -865,18 +962,18 @@ def main(argv=None):
             if not frozen_generator and args.checkpoint_interval > 0 and (
                     epoch % args.checkpoint_interval == 0
                     or epoch in jsonsaver.get_best_steps()):
-                gen.save_model(model_dir, epoch, checkpointer=ckpt_writer)
+                save_generator(epoch, ckpt_writer)
                 saved = True
-            stopping = (args.time_limit
-                        and args.time_limit < time.time() - start_time) or \
+            # rank 0's clock decides for every rank
+            time_up = bool(on_chief(dp, lambda: float(
+                bool(args.time_limit) and args.time_limit < time.time() - start_time)))
+            stopping = time_up or \
                 (args.min_lr and generator_lr < args.min_lr and
                  all(lr is None or lr < args.min_lr for lr in disc_lrs))
             if stopping:
                 if not saved and not frozen_generator:
-                    gen.save_model(model_dir, epoch, checkpointer=ckpt_writer)
-                p.print("Time is up" if args.time_limit
-                        and args.time_limit < time.time() - start_time
-                        else "Minimum learning rate reached")
+                    save_generator(epoch, ckpt_writer)
+                p.print("Time is up" if time_up else "Minimum learning rate reached")
                 return model_dir
     finally:
         ckpt_writer.join()  # the last checkpoint must be on disk

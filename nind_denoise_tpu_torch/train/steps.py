@@ -18,6 +18,12 @@ side, and one update on the two sides' summed gradients.
 Steps run in float32 with TF32 off for cuDNN and matmuls, the precision
 of the JAX reference on the CPU. A train step returns its metrics as 0-d
 device tensors and never reads the device.
+
+In a data-parallel run (``parallel/data_parallel``) each rank steps on its
+rows of the global batch: the gradients are all-reduced once before the
+update, the metrics come out as the global batch's means, and the
+discriminator's targets are drawn at the global predictions' shape and
+sliced to the rank's rows, as JAX's sharded step draws them.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..engine.tile_engine import _tf32
 from ..ops import losses as L
+from ..parallel import data_parallel
 from .optim import Adam, AmsGrad
 
 LOSS_NAMES = ("SSIM", "L1", "MSE", "MSSSIM", "D1", "D2")
@@ -134,7 +141,9 @@ def make_generator_train_step(apply_fn: Callable, weights: Dict[str, float],
     one update: for UtNet the full-batch step up to fp32 reassociation.
     A BatchNorm net (UNet, in train mode) normalizes each microbatch by
     its own statistics and updates its running stats microbatch by
-    microbatch, as the JAX step threads its state through the scan."""
+    microbatch, as the JAX step threads its state through the scan.
+    In a data-parallel run the microbatches are the rank's parts of the
+    global ones, and the gradients are reduced before the update."""
     weights = normalize_weights(weights)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -186,6 +195,7 @@ def make_generator_train_step(apply_fn: Callable, weights: Dict[str, float],
                 inv = 1.0 / grad_accum
                 torch._foreach_mul_([p.grad for p in opt.params], inv)
                 metrics = {k: v * inv for k, v in sums.items()}
+            metrics = data_parallel.reduce_gradients(opt.params, metrics)
             opt.step()
         return metrics
 
@@ -238,13 +248,18 @@ def make_discriminator_train_step(disc: nn.Module, opt: AmsGrad, conditional: bo
     then the fake side (noisy targets if ``fake_is_noisy``), on the
     generated crop detached; the two gradients sum into one ``opt`` step.
     The targets' uniform draws come from ``generator`` (real side first),
-    or are ``draws`` = (real, fake), each of the predictions' shape.
-    ``ranges`` holds the real and the fake predictions' min and max."""
+    or are ``draws`` = (real, fake), each of the global predictions' shape;
+    a data-parallel rank takes its rows of them.
+    ``ranges`` holds the real and the fake predictions' min and max. In a
+    data-parallel run the losses are the global means and the ranges the
+    global extremes."""
 
     def side(batch, target_real, noisy_targets, u, generator):
         preds = disc(batch)
         if u is None:
-            u = torch.rand(preds.shape, generator=generator, device=preds.device)
+            u = torch.rand(data_parallel.global_shape(preds.shape), generator=generator,
+                           device=preds.device)
+        u = data_parallel.rank_slice(u)
         loss = torch.mean((preds - fuzzy_targets(u, target_real, noisy_targets)) ** 2)
         loss.backward()
         return loss.detach(), preds.detach()
@@ -261,10 +276,13 @@ def make_discriminator_train_step(disc: nn.Module, opt: AmsGrad, conditional: bo
         with _tf32(False):
             loss_real, preds_r = side(real_b, True, True, u_r, generator)
             loss_fake, preds_f = side(fake_b, False, fake_is_noisy, u_f, generator)
+            losses = data_parallel.reduce_gradients(opt.params, {"real": loss_real,
+                                                                 "fake": loss_fake})
             opt.step()
         opt.zero_grad(set_to_none=True)  # free them for the generator's step
-        ranges = torch.stack([preds_r.min(), preds_r.max(), preds_f.min(), preds_f.max()])
-        return loss_real, loss_fake, ranges
+        ranges = data_parallel.min_max(
+            torch.stack([preds_r.min(), preds_r.max(), preds_f.min(), preds_f.max()]))
+        return losses["real"], losses["fake"], ranges
 
     return step
 

@@ -242,13 +242,11 @@ def test_test_reserve_list_matches_jax(tmp_path):
     # prediction map is empty below 256 px, here at loss_cs 168
     (["--weight_D1", "0.5", "--d_lr", "1e-4", "--d_network", "HunkyDisc"],
      ValueError, "prediction map is empty"),
-    (["--coordinator", "localhost:1234"], NotImplementedError, "item 9"),
-    (["--num_processes", "2"], NotImplementedError, "item 9"),
-    (["--process_id", "0"], NotImplementedError, "item 9"),
 ])
 def test_unported_flags_raise_naming_their_roadmap_item(data, tmp_path, extra, exc, match):
-    """Refused before anything is written: what the port does not run yet
-    names its ROADMAP item; what cannot run in either package says why."""
+    """Refused before anything is written: what cannot run in either
+    package says why (the three multi-process flags run since data-parallel
+    training landed: tests/test_torch_train_dp.py)."""
     with pytest.raises(exc, match=match):
         loop.main(data["args"] + ["--models_dpath", str(tmp_path), "--device", "cpu"]
                   + extra)
