@@ -225,6 +225,20 @@ limit as nvidia-smi reports them):
    the cGAN generator step's ms a rank against one process, and the
    all-reduce's bytes and ms a step (gloo and nccl; nccl also in parts
    against its bytes bound).
+31. dp_test: the trainer's whole-image test sharded over two data-parallel
+   ranks on cuda:0 over gloo (a rehearsal on one card, not a scaling
+   figure; ``train.loop.test_generator``, ``parallel/spatial.rank_bands``):
+   UNet at full width, fp32, on a seeded NIND-shaped 16-bit pair (4000 x
+   6000, cropped to 3968 x 5952 by ``TestDenoiseDataset``), each rank
+   forwarding one band of rows with a 192-row halo, its BatchNorm by the
+   owned rows of both bands, rank 0 gathering and scoring (MS-SSIM + MSE);
+   then rank 0's whole forward of the same test alone: the two losses
+   within 1e-5, the gathered image within 1e-4 of the whole forward's, the
+   running stats untouched and the replicas equal, and each band
+   forward's peak memory below the whole forward's; the same with UtNet
+   funit 64, fp32, on a seeded 2008 x 3000 pair (a size it takes), where
+   K2 launches once a rank and is held bit-equal to its plain version at
+   each band's padded shape.
 
 Then a ``kernels`` line (per-launch times against each kernel's bound),
 the card line and, last, ``{"ok": true, "device": {...}}``. Any failure,
@@ -4443,6 +4457,216 @@ def phase_dp_train(torch, card, tmp, kernel_mods, batch=30, cs=184, lr=1e-4, d_f
     return launches
 
 
+# -- the trainer's whole-image test sharded over data-parallel ranks ----------------
+
+DP_TEST_WEIGHTS = {"MSSSIM": 1.0, "MSE": 1.0}  # the test's loss, both terms
+DP_TEST_LOSS_TOL = 1e-5  # sharded against rank 0's unsharded test loss (the CPU tests' bar)
+DP_TEST_IMAGE_TOL = 1e-4  # the gathered image against the whole forward, fp32 without TF32
+DP_TEST_UTNET_HW = (2008, 3000)  # 6 MP, a size UtNet takes (8 mod 16 both ways)
+
+# one rank of the dp_test phase: a two-rank group (torchrun's variables), the
+# trainer's ``test_generator`` on the 24 MP NIND-shaped pair with UNet (each
+# rank its band), then rank 0's whole forward of the same test alone; the
+# same with UtNet funit 64 on a 6 MP pair (K2 counted around the sharded
+# test, its band input kept for the check against the plain version). Each
+# generator forward's peak memory above what was allocated before it, and
+# its seconds (first calls at their shapes: cold).
+DP_TEST_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+import chip_smoke as S
+from nind_denoise_tpu_torch.core import imgio
+from nind_denoise_tpu_torch.ops import enc1
+from nind_denoise_tpu_torch.parallel import data_parallel, mesh
+from nind_denoise_tpu_torch.train import dataset, loop
+scenes, unet_ck, utnet_ck, pair, k2_in, dev = sys.argv[2:8]
+mesh.init_distributed()
+dp = data_parallel.start(mesh.rank_device(dev))
+fn, seen, bands, kept = enc1.enc1, [], [], []
+def spy(*args, **kw):
+    if not seen:
+        seen.append([a.detach().cpu() for a in args])
+    return fn(*args, **kw)
+enc1.enc1 = spy
+run_band, gather = loop.spatial.run_rank_band, mesh.gather_rows
+def spy_band(forward, x, band):
+    bands.append([*band, x.shape[2]])
+    return run_band(forward, x, band)
+def spy_gather(*a, **k):
+    kept.append(gather(*a, **k))
+    return kept[-1]
+loop.spatial.run_rank_band, mesh.gather_rows = spy_band, spy_gather
+def run(gen, test_set, sharded):
+    peaks, secs, outs, infer = [], [], [], gen.infer
+    def measured(x):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        y = infer(x)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        outs.append(y)
+        return y
+    gen.infer = measured
+    bands.clear()
+    kept.clear()
+    enc1.launches = 0
+    t0 = time.time()
+    if sharded:
+        loss = loop.test_generator(gen, test_set, dp=dp)
+    else:
+        with data_parallel.local():
+            loss = loop.test_generator(gen, test_set)
+    torch.cuda.synchronize()
+    gen.infer = infer
+    image = kept[0] if sharded else outs[0]
+    return ({"loss": loss, "s": time.time() - t0, "forward_peak_bytes": peaks,
+             "forward_s": secs, "bands": list(bands), "enc1": enc1.launches}, image)
+def alone(f):  # rank 0 alone, while the other ranks wait with an empty cache
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out = f() if dp.rank == 0 else (None, None)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+rec = {"backend": dp.backend, "rank": dp.rank}
+for name, ck, sets in (("unet", unet_ck, dataset.TestDenoiseDataset(scenes, ["TS"])),
+                       ("utnet", utnet_ck, [tuple(imgio.load_img(p) for p in pair.split(","))])):
+    gen = S.trainer_gen(ck, "UNet" if name == "unet" else "UtNet", dp.device, S.DP_TEST_WEIGHTS)
+    data_parallel.convert_batch_norm(gen.state.model)
+    before = data_parallel.digest([gen.state.model])
+    rec[name], sharded = run(gen, sets, True)
+    if name == "utnet":
+        torch.save(seen[0] if seen else None, k2_in)
+    rec[name]["state_unchanged"] = data_parallel.digest([gen.state.model]) == before
+    rec[name]["digest"] = before
+    rec[name + "_whole"], whole = alone(lambda: run(gen, sets, False))
+    if dp.rank == 0:
+        rec[name]["image_max_abs_diff"] = (sharded.clamp(0, 1) - whole.clamp(0, 1)).abs().max().item()
+    del gen, sharded, whole
+print("RESULT " + json.dumps(rec))
+"""
+
+
+def trainer_gen(ckpt, network, device, weights):
+    """The trainer's generator as ``train.loop.test_generator`` reads it:
+    the model of ``ckpt`` on ``device`` in train mode, its forward
+    (``GeneratorWrapper.infer``: no TF32, a UNet's batch statistics with
+    the running stats untouched), the loss weights."""
+    import types
+
+    import torch
+
+    from nind_denoise_tpu_torch.models import params_io
+    from nind_denoise_tpu_torch.train import loop, steps
+
+    model = params_io.load_generator(ckpt, network).to(device).train()
+    gen = types.SimpleNamespace(network=network, device=torch.device(device),
+                                weights=steps.normalize_weights(weights),
+                                apply_fn=steps.plain_apply,
+                                state=types.SimpleNamespace(model=model))
+    gen.infer = types.MethodType(loop.GeneratorWrapper.infer, gen)
+    return gen
+
+
+def phase_dp_test(torch, card, tmp, kernel_mods, utnet_ckpt, big_hw=BIG_HW,
+                  utnet_hw=DP_TEST_UTNET_HW):
+    """Phase 31 (see the module doc). Returns the two ranks' launch counts
+    on the sharded UtNet test. The pairs are uncompressed 16-bit TIFFs
+    (NIND's scenes are PNGs; the same pixels, decoded faster). This process
+    first returns its cached device memory: the two ranks' UNet bands and
+    rank 0's whole forward need about 46 and 42 GB of the card."""
+    import gc
+
+    from nind_denoise_tpu_torch.ops import enc1 as E
+    from nind_denoise_tpu_torch.parallel import spatial
+    from nind_denoise_tpu_torch.tools import fixtures
+
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    parent_bytes = {"allocated": torch.cuda.memory_allocated(),
+                    "reserved": torch.cuda.memory_reserved()}
+    work = os.path.join(tmp, "dp_test")
+    scenes, pair_root = os.path.join(work, "NIND"), os.path.join(work, "pair")
+    os.makedirs(work)
+    write_scenes(scenes, big_hw, seed=23, sets=("TS",),
+                 isos=(SCENE_ISOS[0], SCENE_ISOS[-1]), ext=".tif")
+    pair = write_scenes(pair_root, utnet_hw, seed=29, sets=("TU",),
+                        isos=(SCENE_ISOS[0], SCENE_ISOS[-1]), ext=".tif")
+    unet_ck = os.path.join(work, "unet.npz")
+    fixtures.write_unet_checkpoint(unet_ck, 3)
+    k2_in = [os.path.join(work, f"k2_rank{r}.pt") for r in range(2)]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE="2", LOCAL_WORLD_SIZE="2")
+    ranks, ranks_s = run_children(
+        DP_TEST_CHILD, [[scenes, unet_ck, utnet_ckpt, ",".join(pair), k2_in[r], DP_DEV]
+                        for r in range(2)],
+        [dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(2)])
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"], f"dp_test: backends {ranks}")
+    recs = {}
+    for name, hw, network in (("unet", (big_hw[0] // 64 * 64, big_hw[1] // 64 * 64), "UNet"),
+                              ("utnet", utnet_hw, "UtNet")):
+        want = spatial.rank_bands(*hw, 2, network)
+        sharded, whole = [r[name] for r in ranks], ranks[0][name + "_whole"]
+        got = [tuple(r["bands"][0][:4]) for r in sharded]
+        check(want is not None and all(len(r["bands"]) == 1 for r in sharded)
+              and got == [tuple(b) for b in want]
+              and all(r["bands"][0][4] == r["bands"][0][1] - r["bands"][0][0] < hw[0]
+                      for r in sharded), f"dp_test {name}: bands {got}, expected {want}")
+        check(whole["bands"] == [] and len(whole["forward_peak_bytes"]) == 1,
+              f"dp_test {name}: the unsharded test {whole}")
+        losses = [r["loss"] for r in sharded]
+        diff = abs(losses[0] - whole["loss"])
+        check(losses[0] == losses[1] and diff <= DP_TEST_LOSS_TOL,
+              f"dp_test {name}: sharded losses {losses} against {whole['loss']}")
+        check(all(r["state_unchanged"] for r in sharded)
+              and sharded[0]["digest"] == sharded[1]["digest"],
+              f"dp_test {name}: replicas changed or differ")
+        img_diff = sharded[0]["image_max_abs_diff"]
+        check(img_diff <= DP_TEST_IMAGE_TOL,
+              f"dp_test {name}: gathered image off the whole forward by {img_diff}")
+        peaks = [r["forward_peak_bytes"][0] for r in sharded]
+        whole_peak = whole["forward_peak_bytes"][0]
+        check(all(p < whole_peak for p in peaks),
+              f"dp_test {name}: band peaks {peaks} not below the whole forward's {whole_peak}")
+        recs[name] = {
+            "network": network, "image": list(hw), "bands": got,
+            "band_rows_over_height": [(e - s) / hw[0] for s, e, _, _ in got],
+            "loss_sharded": losses[0], "loss_unsharded": whole["loss"], "loss_abs_diff": diff,
+            "image_max_abs_diff": img_diff,
+            "band_forward_peak_bytes": peaks, "whole_forward_peak_bytes": whole_peak,
+            "band_peak_over_whole": [p / whole_peak for p in peaks],
+            "test_s_sharded": [r["s"] for r in sharded], "test_s_unsharded": whole["s"],
+            "forward_s_sharded": [r["forward_s"][0] for r in sharded],
+            "forward_s_unsharded": whole["forward_s"][0]}
+    k2 = [r["utnet"]["enc1"] for r in ranks]
+    check(k2 == [1, 1], f"dp_test: K2 launches {k2} on the sharded UtNet test, expected 1 a rank")
+    k2_recs = []
+    for r, path in enumerate(k2_in):
+        args = torch.load(path)
+        s, e = ranks[r]["utnet"]["bands"][0][:2]
+        check(args is not None and list(args[0].shape) == [1, 3, e - s + 4, utnet_hw[1] + 4]
+              and args[0].dtype == torch.float32, f"dp_test: rank {r}'s K2 input {args}")
+        with torch.inference_mode():
+            k2_recs.append(enc1_record(torch, E, [a.to(DEV) for a in args], 10))
+        check(k2_recs[-1]["max_abs_err"] == 0,
+              f"dp_test: K2 fp32 not bit-equal at the band shape: {k2_recs[-1]}")
+    launches = {name: 0 for name in kernel_mods}
+    launches["enc1"] = sum(k2)
+    emit(card, phase="dp_test", devices="cuda:0 twice: a rehearsal on one card, not a "
+         "scaling figure", backend="gloo", weights=DP_TEST_WEIGHTS, unet=recs["unet"],
+         utnet=dict(recs["utnet"], funit=64, enc1_launches_by_rank=k2, enc1_fp32=k2_recs),
+         tolerance={"loss": DP_TEST_LOSS_TOL, "image": DP_TEST_IMAGE_TOL, "enc1": 0},
+         this_process_device_bytes=parent_bytes, ranks_s=ranks_s, phase_s=time.time() - t0)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4496,6 +4720,7 @@ def main() -> int:
         by_path["trace"] = phase_trace(torch, card, tmp, kernel_mods, tif, ckpt)
         by_path.update(phase_parallel(torch, card, tmp, kernel_mods, tif, ckpt))
         by_path["dp_train"] = phase_dp_train(torch, card, tmp, kernel_mods)
+        by_path["dp_test"] = phase_dp_test(torch, card, tmp, kernel_mods, ckpt)
     phase_serve_kernels(torch, card, serve_inputs, model)
 
     def row(name, source, replaces, rec):

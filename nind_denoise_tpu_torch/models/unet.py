@@ -25,7 +25,9 @@ mode and changes no buffer (the JAX trainer's ``infer``, which applies
 ``train=True`` and drops the new state, and the recomputation under
 ``--remat``, which must not update the stats a second time). In a
 data-parallel run both take the global batch's statistics (the module's
-own ``normalize``, ``norm.normalize_fn``).
+own ``normalize``, ``norm.normalize_fn``); in one band of the trainer's
+sharded whole-image test (``data_parallel.owned_rows``) the frozen path
+takes those of every rank's owned rows, the whole image's.
 """
 
 from __future__ import annotations

@@ -34,7 +34,15 @@ each process (rank) holds one replica on its own device, and:
   ``[sum dy, sum dy*x_hat]``. Its ``normalize`` is the functional form
   (``F.batch_norm``'s arguments) that the models' frozen paths call;
 * ``local()`` is a section one rank runs alone (validation on rank 0): inside
-  it nothing is reduced.
+  it nothing is reduced;
+* ``owned_rows(r0, r1, rows)`` marks a forward of one row band of an image
+  (the trainer's sharded whole-image test, ``parallel/spatial.py``): rows
+  ``[r0, r1)`` of the band's ``rows`` are this rank's, the rest a halo
+  whose activations near the band's cut are wrong by construction. Inside
+  it a ``GlobalBatchNorm2d`` in train mode sums ``[sum x, sum x^2, n]``
+  over the owned rows alone, at each layer's scale (``owned``), across
+  ranks, and normalizes the whole band by them: the statistics of the
+  whole image. A forward only (no autograd).
 
 Nothing here falls back: a failed ``nccl`` group raises.
 """
@@ -84,6 +92,7 @@ class DataParallel:
     reduce_bytes: int = 0  # bytes of the last gradient all-reduce's buffer
     stopped: bool = False  # the last ``batches`` ended on a shutdown request
     paused: int = 0  # open ``local`` sections, one more once the run stops
+    band: Optional[tuple] = None  # (r0, r1, rows) inside ``owned_rows``
 
     @property
     def reducing(self) -> bool:
@@ -157,6 +166,34 @@ def local():
     finally:
         if dp is not None:
             dp.paused -= 1
+
+
+@contextlib.contextmanager
+def owned_rows(r0: int, r1: int, rows: int):
+    """A forward of a band of ``rows`` input rows of which ``[r0, r1)`` are
+    this rank's (see the module doc); a no-op without an active run."""
+    dp = active()
+    if dp is not None:
+        if dp.band is not None:
+            raise RuntimeError("owned_rows sections do not nest")
+        dp.band = (r0, r1, rows)
+    try:
+        yield
+    finally:
+        if dp is not None:
+            dp.band = None
+
+
+def owned(x: torch.Tensor, band: tuple) -> torch.Tensor:
+    """The rows of NCHW ``x``, an activation of a band's forward, that the
+    band owns: ``[r0, r1)`` of its ``rows`` input rows at ``x``'s scale,
+    which must divide them exactly."""
+    r0, r1, rows = band
+    h = x.shape[2]
+    if rows % h or r0 % (rows // h) or r1 % (rows // h):
+        raise ValueError(f"owned rows [{r0}, {r1}) of {rows} at a scale of {h} rows")
+    k = rows // h
+    return x[:, :, r0 // k:r1 // k]
 
 
 def derive_backend(device: torch.device) -> str:
@@ -269,6 +306,33 @@ def global_shape(shape) -> tuple:
 
 # -- BatchNorm over the global batch --------------------------------------------
 
+def _global_moments(x: torch.Tensor, group):
+    """(mean, biased variance, count) a channel of NCHW ``x`` over every
+    rank's ``x``: ``[sum x, sum x^2, n]`` in float64 from each rank's own
+    mean and variance, summed across ranks. The count stays on the device:
+    no host read a site."""
+    c = x.shape[1]
+    n = x.numel() // c
+    var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
+    m64 = mean.double()
+    local = torch.cat([m64 * n, (var.double() + m64 * m64) * n,
+                       torch.full((1,), float(n), dtype=torch.float64, device=x.device)])
+    tot = mesh.all_reduce(local, "sum", group)
+    count = tot[-1]
+    gmean64 = tot[:c] / count
+    gvar = (tot[c:2 * c] / count - gmean64 * gmean64).clamp_min(0).float()
+    return gmean64.float(), gvar, count
+
+
+def _update_running(running_mean, running_var, gmean, gvar, count, momentum) -> None:
+    """The running stats (where given) take the global statistics, the
+    variance unbiased over ``count``."""
+    if running_mean is not None:
+        unbiased = gvar * (count / (count - 1).clamp_min(1)).float()
+        running_mean.copy_((1 - momentum) * running_mean + momentum * gmean)
+        running_var.copy_((1 - momentum) * running_var + momentum * unbiased)
+
+
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch norm of NCHW ``x`` by the statistics of every rank's
     rows; updates the running stats (unbiased over the global count) where
@@ -276,21 +340,8 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps, group):
-        c = x.shape[1]
-        n = x.numel() // c
-        var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
-        m64 = mean.double()
-        local = torch.cat([m64 * n, (var.double() + m64 * m64) * n,
-                           torch.full((1,), float(n), dtype=torch.float64, device=x.device)])
-        tot = mesh.all_reduce(local, "sum", group)
-        count = tot[-1]  # kept on the device: no host read a site
-        gmean64 = tot[:c] / count
-        gmean = gmean64.float()
-        gvar = (tot[c:2 * c] / count - gmean64 * gmean64).clamp_min(0).float()
-        if running_mean is not None:
-            unbiased = gvar * (count / (count - 1).clamp_min(1)).float()
-            running_mean.copy_((1 - momentum) * running_mean + momentum * gmean)
-            running_var.copy_((1 - momentum) * running_var + momentum * unbiased)
+        gmean, gvar, count = _global_moments(x, group)
+        _update_running(running_mean, running_var, gmean, gvar, count, momentum)
         inv = torch.reciprocal(torch.sqrt(gvar + eps))
         xhat = (x - gmean[:, None, None]) * inv[:, None, None]
         y = xhat
@@ -330,10 +381,19 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
 
     def normalize(self, x: torch.Tensor, running_mean, running_var, weight, bias,
                   training: bool, momentum: float, eps: float) -> torch.Tensor:
-        """``F.batch_norm``, by the global batch's statistics in training."""
+        """``F.batch_norm``, by the global batch's statistics in training;
+        inside ``owned_rows``, by those of every rank's owned rows."""
         if not self._global(training):
             return F.batch_norm(x, running_mean, running_var, weight, bias, training,
                                 momentum, eps)
+        if self.dp.band is not None:
+            if torch.is_grad_enabled():
+                raise RuntimeError("a band's BatchNorm is a forward only: run it under no_grad")
+            # the whole band by the owned rows' statistics, in one fused pass
+            xf = x.float()
+            gmean, gvar, count = _global_moments(owned(xf, self.dp.band), self.dp.group)
+            _update_running(running_mean, running_var, gmean, gvar, count, momentum)
+            return F.batch_norm(xf, gmean, gvar, weight, bias, False, 0.0, eps).to(x.dtype)
         y = _GlobalBatchNorm.apply(x.float(), weight, bias, running_mean, running_var,
                                    momentum, eps, self.dp.group)
         return y.to(x.dtype)

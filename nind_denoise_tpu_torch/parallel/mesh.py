@@ -29,9 +29,9 @@ where JAX reads ``JAX_COORDINATOR_ADDRESS``, or JAX's three flags
 (``--coordinator host:port --num_processes N --process_id i``).
 ``rank_device`` is a training rank's device, and the small collectives
 (``all_reduce_`` in place, ``all_reduce``, ``all_min``/``all_max``,
-``broadcast0``, ``broadcast_object``) take tensors on that device: a
-``gloo`` group moves a CUDA tensor through the host, an ``nccl`` group
-takes no CPU tensor.
+``broadcast0``, ``broadcast_object``, ``gather_rows``) take tensors on
+that device: a ``gloo`` group moves a CUDA tensor through the host, an
+``nccl`` group takes no CPU tensor.
 """
 
 from __future__ import annotations
@@ -251,6 +251,28 @@ def broadcast0(t: torch.Tensor, group=None) -> torch.Tensor:
         return t
     src = dist.get_global_rank(group, 0) if group is not None else 0
     return _through(t, group, lambda x: dist.broadcast(x, src, group=group))
+
+
+def gather_rows(t: torch.Tensor, rows: Sequence[int], group=None) -> Optional[torch.Tensor]:
+    """On rank 0, every rank's NCHW ``t`` concatenated along H in rank
+    order, where rank r's has ``rows[r]`` rows (every rank passes the same
+    ``rows``); None on the other ranks. Each part is padded to the longest,
+    so one ``gather`` moves them all. A collective."""
+    import torch.distributed as dist
+
+    if not _joined():
+        return t
+    rank = dist.get_rank(group)
+    if t.shape[2] != rows[rank]:
+        raise ValueError(f"rank {rank}: {t.shape[2]} rows, expected {rows[rank]}")
+    comm = torch.device("cpu") if dist.get_backend(group) == "gloo" else t.device
+    part = torch.nn.functional.pad(t, (0, 0, 0, max(rows) - rows[rank])).to(comm).contiguous()
+    parts = [torch.empty_like(part) for _ in rows] if rank == 0 else None
+    dst = dist.get_global_rank(group, 0) if group is not None else 0
+    dist.gather(part, parts, dst=dst, group=group)
+    if rank != 0:
+        return None
+    return torch.cat([p[:, :, :n] for p, n in zip(parts, rows)], 2).to(t.device)
 
 
 def broadcast_object(obj):

@@ -26,19 +26,32 @@ network's reach, computed and then discarded: no exchange between devices.
 So the kept rows equal the single-device whole forward within float
 rounding (on the CPU bit for bit), and a band's activations are
 ``(owned + 2 * halo) / height`` of the whole forward's.
+
+The trainer's whole-image test (``train/loop.test_generator``) cuts the
+same bands, one a data-parallel rank (``rank_bands``, ``run_rank_band``):
+each rank forwards its band under ``data_parallel.owned_rows``, so that a
+UNet's train-mode BatchNorm takes its statistics from the owned rows of
+every band, summed across ranks, and rank 0 gathers the kept rows. The Hul
+generators are VALID convs with two stride-3 levels: their bands start on
+multiples of 9 (the pooling grid of both levels) and have the length their
+validator takes; ``HUL_HALO`` was measured as ``HALO`` was, in float64 at
+random weights: the kept rows equal the whole forward to rounding with 117
+rows of halo, and not with 108 (``tests/test_torch_dp_test.py``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core import tiles as tiles_mod
-from . import mesh
+from ..models.utnet import check_cs
+from . import data_parallel, mesh
 
 HALO = 192
+HUL_HALO = 117
 
 
 def device_count(height: int, n: int) -> int:
@@ -46,6 +59,74 @@ def device_count(height: int, n: int) -> int:
     must divide the mesh): the largest divisor of ``height`` that is at
     most ``n``."""
     return max(d for d in range(min(n, height), 0, -1) if height % d == 0)
+
+
+def bands(height: int, n: int, align: int, halo: int = HALO,
+          size_check=None) -> List[tuple]:
+    """(input start, input end, owned start, owned end) rows of each of at
+    most ``n`` bands of a ``height`` the architecture takes: owned cuts on
+    multiples of ``align``, ``halo`` rows above and below (clipped at the
+    image), each input extended to a length ``size_check`` takes (None:
+    multiples of 64). Fewer than ``n`` bands where cuts coincide."""
+    cuts = sorted({0, height} | {min(height, round(k * height / n / align) * align)
+                                 for k in range(1, n)})
+    out = []
+    for o0, o1 in zip(cuts, cuts[1:]):
+        s = max(0, o0 - halo)
+        e = height if o1 == height else min(
+            height, s + tiles_mod.next_valid_dim(o1 + halo - s, size_check))
+        out.append((s, e, o0, o1))
+    return out
+
+
+def _multiple_of_64(n: int) -> None:
+    if n % 64:
+        raise ValueError(f"UNet: {n} is not a multiple of 64")
+
+
+def _hul_check(n: int) -> None:
+    """The Hul generators' sizes: (n - 14) and the stages after it divide
+    by 3, and the bottom keeps a row (128 -> 114 -> 38 -> 30 -> 10 -> 2)."""
+    m = (n - 14) // 3 - 8
+    if n < 14 or (n - 14) % 3 or m <= 0 or m % 3 or m // 3 - 8 <= 0:
+        raise ValueError(f"Hul generator: invalid size {n}")
+
+
+# (align, halo, size check) of each trainable generator's bands
+GEOMETRY = {"UNet": (64, HALO, _multiple_of_64), "UtNet": (16, HALO, check_cs),
+            "Hulb128Net": (9, HUL_HALO, _hul_check), "Hulbs128Net": (9, HUL_HALO, _hul_check)}
+
+
+def rank_bands(height: int, width: int, world: int, network: str) -> Optional[List[tuple]]:
+    """The trainer's test bands of an image, one a rank, or None where the
+    image takes rank 0's whole forward: one process, a height the world
+    does not divide (JAX's predicate), a size the network does not take
+    (the whole forward raises there, as JAX's does), or fewer bands than
+    ranks (an image too short to cut). Read from the shape alone, so every
+    rank decides alike."""
+    if world <= 1 or height % world:
+        return None
+    align, halo, check = GEOMETRY[network]
+    try:
+        check(height)
+        check(width)
+    except ValueError:
+        return None
+    out = bands(height, world, align, halo, check)
+    return out if len(out) == world else None
+
+
+def run_rank_band(forward: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+                  band: tuple) -> torch.Tensor:
+    """``forward`` over ``x``, the input rows ``[s, e)`` of ``band`` of an
+    NCHW image, with the band's owned rows marked for a global BatchNorm
+    (``data_parallel.owned_rows``): the output's owned rows."""
+    s, e, o0, o1 = band
+    if x.shape[2] != e - s:
+        raise ValueError(f"band {band}: input of {x.shape[2]} rows")
+    with data_parallel.owned_rows(o0 - s, o1 - s, e - s):
+        y = forward(x)
+    return y[:, :, o0 - s:o1 - s]
 
 
 class SpatialShardedForward:
@@ -77,17 +158,8 @@ class SpatialShardedForward:
 
     def bands(self, height: int) -> List[tuple]:
         """(input start, input end, owned start, owned end) rows a band,
-        for a ``height`` the architecture takes."""
-        a = self.align
-        cuts = sorted({0, height} | {min(height, round(k * height / self.ndev / a) * a)
-                                     for k in range(1, self.ndev)})
-        out = []
-        for o0, o1 in zip(cuts, cuts[1:]):
-            s = max(0, o0 - self.halo)
-            e = height if o1 == height else min(
-                height, s + tiles_mod.next_valid_dim(o1 + self.halo - s, self.size_check))
-            out.append((s, e, o0, o1))
-        return out
+        for a ``height`` the architecture takes (``bands``)."""
+        return bands(height, self.ndev, self.align, self.halo, self.size_check)
 
     def prepare(self, img_hwc: np.ndarray):
         """(the image mirror-padded to a size the architecture takes, its

@@ -50,9 +50,11 @@ first line of ``train.log`` says which). Rank 0 loads the global batch and
 scatters it; the gradients, the metrics and every BatchNorm's statistics
 are the global batch's; every decision of the loop (the D/G schedule, the
 LR decay, the time limit, a shutdown signal to any rank) is taken from a
-value all ranks agree on. Rank 0 alone validates, runs the whole-image
-test, writes checkpoints and image dumps and prunes them; the other ranks
-log to ``<experiment>_rank{i}``.
+value all ranks agree on. The whole-image test shards each image's rows
+over the ranks where the world divides its height (``test_generator``,
+``parallel/spatial.py``), else rank 0 runs it; rank 0 alone validates,
+scores the test, writes checkpoints and image dumps and prunes them; the
+other ranks log to ``<experiment>_rank{i}``.
 
 UNet trains with BatchNorm in train mode (batch statistics, running stats
 updated; microbatch by microbatch under ``--grad_accum``), validates in
@@ -95,7 +97,7 @@ import yaml
 from ..engine.tile_engine import _tf32
 from ..models import GENERATORS, ZOO_DISCS, get_network, is_discriminator, params_io
 from ..models.relics import HunkyDisc
-from ..parallel import data_parallel, mesh
+from ..parallel import data_parallel, mesh, spatial
 from ..utils import conf, json_saver
 from ..utils.device import resolve_device
 from ..utils.log import Printer
@@ -542,22 +544,45 @@ def validate_generator(eval_step, gen, validation_set,
     return statistics.mean(losses)
 
 
-def test_generator(gen, test_set, output_to_dir: Optional[str] = None) -> float:
-    """Whole-image test (nn_train.py:73-93) on the device."""
+def test_generator(gen, test_set, output_to_dir: Optional[str] = None, dp=None) -> float:
+    """Whole-image test (nn_train.py:73-93) on the device; its loss on
+    every rank.
+
+    One process forwards each image whole. In a data-parallel run ``dp``
+    every rank calls it, image after image, and the forward shards H over
+    the ranks as JAX's shards it over its mesh: where the world divides
+    the image's height (``spatial.rank_bands``, decided from the shape
+    alone, so every rank takes the same branch), each rank forwards its
+    band of rows with a halo it drops (a UNet's BatchNorm by the owned
+    rows of every band), rank 0 gathers the kept rows, clamps and scores
+    the whole image, and writes ``output_to_dir``; otherwise rank 0 runs
+    the whole forward alone. The loss is broadcast. A failing band forward
+    raises: JAX's fallback to one device on any exception is not ported."""
     from ..core import imgio
+
+    def score(i, clean, den):
+        c = _image_to_device(clean, gen.device)
+        den = torch.clamp(den, 0, 1)
+        with torch.no_grad():
+            total, _ = steps._quality_losses(den, c, gen.weights)
+        if output_to_dir is not None:
+            os.makedirs(output_to_dir, exist_ok=True)
+            imgio.save_img(den[0].cpu().numpy(), os.path.join(output_to_dir, f"{i}.tif"))
+        return float(total)
 
     losses = []
     for i in range(len(test_set)):
         clean, noisy = test_set[i]
-        c, n = _image_to_device(clean, gen.device), _image_to_device(noisy, gen.device)
-        with torch.no_grad():
-            den = torch.clamp(gen.infer(n), 0, 1)
-            total, _ = steps._quality_losses(den, c, gen.weights)
-        if output_to_dir is not None:
-            os.makedirs(output_to_dir, exist_ok=True)
-            imgio.save_img(den[0].cpu().numpy(),
-                           os.path.join(output_to_dir, f"{i}.tif"))
-        losses.append(float(total))
+        bands = None if dp is None else spatial.rank_bands(
+            noisy.shape[1], noisy.shape[2], dp.world, gen.network)
+        den = None  # without bands, rank 0 forwards the image whole
+        if bands is not None:
+            s, e, _, _ = bands[dp.rank]
+            kept = spatial.run_rank_band(
+                gen.infer, _image_to_device(noisy[:, s:e], gen.device), bands[dp.rank])
+            den = mesh.gather_rows(kept, [o1 - o0 for _, _, o0, o1 in bands], dp.group)
+        losses.append(on_chief(dp, lambda: score(i, clean, gen.infer(
+            _image_to_device(noisy, gen.device)) if den is None else den)))
     return statistics.mean(losses)
 
 
@@ -915,7 +940,7 @@ def _train(args, device, dp, is_chief):
                                   write=False)
                 p.print(f"Validation loss: {validation_loss}")
             if args.test_interval > 0 and epoch % args.test_interval == 0:
-                test_loss = on_chief(dp, lambda: test_generator(gen, test_set, test_dir(epoch)))
+                test_loss = test_generator(gen, test_set, test_dir(epoch), dp)
                 jsonsaver.add_res(epoch, {"test_loss": test_loss}, write=False)
 
             if defer_metrics and g_count:

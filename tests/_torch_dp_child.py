@@ -3,6 +3,8 @@
 
     python tests/_torch_dp_child.py steps <host:port> <rank> <in.npz> <out_dir>
     python tests/_torch_dp_child.py shutdown <host:port> <rank> <stop_at> <loop argv...>
+    python tests/_torch_dp_child.py wholetest <host:port> <rank> <world> <in.npz> <out_dir>
+    python tests/_torch_dp_child.py loop <host:port> <rank> <world> <loop argv...>
 
 ``steps``: joins a two-process ``gloo`` group and runs, on this rank's rows
 of the global batches in ``in.npz`` (``data_parallel.rank_rows``), two DP
@@ -13,9 +15,25 @@ the global fuzzy-target draws the file holds. Writes ``rank<r>.npz``.
 
 ``shutdown``: ``train.loop.main`` with a shutdown flag that only rank 1
 raises, at its ``stop_at``-th poll (one poll a batch).
+
+``wholetest`` (``tests/test_torch_dp_test.py``): joins a ``world``-process
+group and runs ``train.loop.test_generator`` as a data-parallel run on
+each case of ``in.npz`` (a generator checkpoint and a test set), then the
+same test in one process (the run stopped); UNet cases also run it with
+two planted faults: the halo rows counted in the band's statistics, and
+each band's statistics its own (no reduce). Records each loss, each band
+(its rows and the rows it forwarded), the gathered image on rank 0, the
+running stats before and after, and the replica's digest, in
+``wholetest<r>.npz``.
+
+``loop``: ``train.loop.main`` as rank ``rank`` of ``world`` (one process
+without a group where ``world`` is 1), printing its experiment directory
+and every band the whole-image test forwarded on this rank.
 """
 
+import contextlib
 import copy
+import json
 import os
 import sys
 import types
@@ -153,6 +171,81 @@ def run_steps(rank, inp, out_dir):
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 
 
+def _test_gen(ckpt, network, weights):
+    """The trainer's generator as ``test_generator`` reads it: the model
+    from ``ckpt``, its forward (``GeneratorWrapper.infer``), the loss
+    weights, the device."""
+    model = params_io.load_generator(ckpt, network).train()
+    gen = types.SimpleNamespace(network=network, device=torch.device("cpu"),
+                                weights=steps.normalize_weights(weights), apply_fn=steps.plain_apply,
+                                state=types.SimpleNamespace(model=model))
+    gen.infer = types.MethodType(loop.GeneratorWrapper.infer, gen)
+    return gen
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """``halo``: the band's statistics count its halo rows; ``local``: each
+    band normalizes by its own owned rows (the statistics not reduced)."""
+    if fault == "halo":
+        keep, data_parallel.owned = data_parallel.owned, lambda x, band: x
+    elif fault == "local":
+        keep, mesh.all_reduce = mesh.all_reduce, lambda t, op="sum", group=None: t.clone()
+    try:
+        yield
+    finally:
+        if fault == "halo":
+            data_parallel.owned = keep
+        elif fault == "local":
+            mesh.all_reduce = keep
+
+
+def run_wholetest(rank, world, inp, out_dir):
+    d = np.load(inp, allow_pickle=True)
+    out = {}
+    dp = data_parallel.start(torch.device("cpu"))
+    seen, gathered = [], []
+    run_band, gather = loop.spatial.run_rank_band, mesh.gather_rows
+
+    def spy_band(forward, x, band):
+        seen.append([*band, x.shape[2]])
+        return run_band(forward, x, band)
+
+    def spy_gather(*a, **k):
+        got = gather(*a, **k)
+        gathered.append(got)
+        return got
+
+    loop.spatial.run_rank_band, mesh.gather_rows = spy_band, spy_gather
+    for case in d["cases"]:
+        gen = _test_gen(str(d[f"{case}_ckpt"]), str(d[f"{case}_network"]),
+                        json.loads(str(d[f"{case}_weights"])))
+        data_parallel.convert_batch_norm(gen.state.model)
+        test_set = list(zip(d[f"{case}_clean"], d[f"{case}_noisy"]))
+        before = _flat(gen.state.model.state_dict())
+        faults = ("none", "halo", "local") if gen.network == "UNet" else ("none",)
+        for fault in faults:
+            seen.clear()
+            gathered.clear()
+            with _planted(fault):
+                out[f"{case}/{fault}/loss"] = np.array(loop.test_generator(gen, test_set,
+                                                                           dp=dp))
+            out[f"{case}/{fault}/bands"] = np.array(seen, dtype=np.int64).reshape(-1, 5)
+            if fault == "none" and gathered and gathered[0] is not None:
+                out[f"{case}/image"] = gathered[0].numpy()
+        after = _flat(gen.state.model.state_dict())
+        out[f"{case}/state_unchanged"] = np.array(
+            before.keys() == after.keys() and all(np.array_equal(before[k], after[k])
+                                                  for k in before))
+        out[f"{case}/digest"] = np.array(data_parallel.digest([gen.state.model]))
+        data_parallel.stop()
+        out[f"{case}/one_process_loss"] = np.array(loop.test_generator(gen, test_set))
+        out[f"{case}/one_process_image"] = gen.infer(torch.from_numpy(test_set[0][1][None])).numpy()
+        dp = data_parallel.start(torch.device("cpu"))
+    data_parallel.stop()
+    np.savez(os.path.join(out_dir, f"wholetest{rank}.npz"), **out)
+
+
 class _OneRankShutdown(loop.GracefulShutdown):
     """Raised on rank 1 alone, at its ``STOP_AT``-th poll."""
     STOP_AT = 0
@@ -177,6 +270,23 @@ def main():
     if mode == "steps":
         mesh.init_distributed(coordinator=coordinator, num_processes=WORLD, process_id=rank)
         run_steps(rank, sys.argv[4], sys.argv[5])
+    elif mode == "wholetest":
+        world = int(sys.argv[4])
+        mesh.init_distributed(coordinator=coordinator, num_processes=world, process_id=rank)
+        run_wholetest(rank, world, sys.argv[5], sys.argv[6])
+    elif mode == "loop":
+        world, seen = int(sys.argv[4]), []
+        run_band = loop.spatial.run_rank_band
+
+        def spy_band(forward, x, band):
+            seen.append([*band, x.shape[2]])
+            return run_band(forward, x, band)
+
+        loop.spatial.run_rank_band = spy_band
+        join = ["--coordinator", coordinator, "--num_processes", str(world),
+                "--process_id", str(rank)] if world > 1 else []
+        print("EXPERIMENT " + loop.main(sys.argv[5:] + join))
+        print("BANDS " + json.dumps(seen))
     elif mode == "shutdown":
         _OneRankShutdown.STOP_AT, _OneRankShutdown.RANK = int(sys.argv[4]), rank
         loop.GracefulShutdown = _OneRankShutdown
