@@ -421,7 +421,12 @@ def phase_enc1(torch, card):
         dt = getattr(torch, dtype)
         # the product batch, a ragged 104 x 136, and the two shapes the
         # server's adapted (cs 136) and tiny paths give K2
-        for bsz, h, w in ((8, 504, 504), (2, 104, 136), (1, 136, 136), (1, 104, 104)):
+        shapes = ((8, 504, 504), (2, 104, 136), (1, 136, 136), (1, 104, 104))
+        if dtype == "float32":
+            # the trainer's validation crop (x_pad (1, 3, 188, 188)), and a
+            # ragged shape with W % 4 == 2, which takes the element stores
+            shapes += ((1, 184, 184), (3, 50, 30))
+        for bsz, h, w in shapes:
             x = torch.rand(bsz, 3, h + 4, w + 4, generator=gen).to("cuda", dt)
 
             def u(*shape, fan_in):

@@ -49,10 +49,50 @@
 //   (325 MB at 8 x 504^2) do not overlap the compute, since every tile on
 //   the card stores at about the same time.
 //
-// fp32 instance (enc1_f32_kernel): the CUDA-core kernel of the first port,
-// one CTA per image x (8, 32) tile, t0 in shared memory, w1 in two 32-
-// channel slices. It stays on CUDA cores because TF32 would break its
-// 1e-4 x max(1, |l1|) limit; it runs only under --compute_dtype float32.
+// fp32 instance (enc1_f32_kernel): CUDA cores, since TF32 would break its
+// 1e-4 x max(1, |l1|) limit and its bit-equality with the plain version. It
+// runs under --compute_dtype float32 (CLI, server) and wherever the model
+// is fp32: the trainer's validation crops, the cGAN's generator forward
+// before each discriminator step, a data-parallel rank's learn, and the
+// bands of the sharded whole-image test. At fp32's 67 TFLOP/s the
+// operations bound it (1.171 ms at 30 x 184^2 against 0.10 ms of bytes).
+// Every output keeps one operation sequence: t0 = PReLU(fmaf chain over
+// (ci, ky, kx) from 0, + b0); l1 = PReLU(fmaf chain over ci 0..63 outer and
+// tap 0..8 inner from 0, + b1); l2_in = fmaxf over the window's four l1
+// values in row order, from -inf. That is the first port's kernel's
+// sequence, and the plain version (cuDNN fp32 without TF32) gives the same
+// bits at every shape chip_smoke.py checks; nothing splits a sum (no
+// split-K, no atomics).
+//   Persistent CTAs, one per SM at most (ops/enc1.py f32_cta_count), walk
+//   the (image, 8 x 32 tile) list (f32_walk). A CTA loads the whole of w1
+//   once, [ci][tap][co]. A tile's t0 (the tile and its 1-pixel halo, 10 x
+//   34, computed 10 x 36) comes in 4 chunks of 16 channels, double-
+//   buffered: while c1 sums chunk k, c0 computes chunk k+1 into the other
+//   buffer (the last chunk's interval computes the next tile's chunk 0, from
+//   the next x patch, fetched by cp.async at the tile's start), one barrier
+//   a chunk. The 64 accumulators stay in registers across the chunks, so
+//   the ci order holds.
+//   c1: warp g owns channels 8g..8g+7 for the whole tile; lane (lr, lc) =
+//   (lane / 8, lane % 8) owns rows 2lr, 2lr+1 and columns 4lc..4lc+3: 8
+//   channels x 8 pixels = two 2x2 pool windows, 64 accumulators. For each
+//   input channel it reads its 4 x 6 t0 window (per row a float4 and a
+//   float2; a quarter-warp reads one row's 128 contiguous bytes) and 9 x 8
+//   weights (float4 broadcasts): 26 shared loads for 576 FMAs, against 34
+//   for 288 in the first port's kernel. The next channel's window is loaded
+//   ahead, with no branch around it.
+//   c0: half-warp h of warp w computes chunk channel 2w + h, its 27 weights
+//   in registers; a task is 2 rows x 4 columns of it (3 x 4 x-patch rows of
+//   6, 216 FMAs, two float4 stores), 45 tasks in 3 rounds of 16. Warps 0-3
+//   run c0 before c1 and warps 4-7 after it, so each scheduler has one warp
+//   of each (all c0 first: 6 % slower, tools/enc1_breakdown.py).
+//   The epilogue stores from registers, with no stage in shared memory:
+//   per channel two float4 rows of l1 (a quarter-warp writes 128 contiguous
+//   bytes) and a float2 of l2_in; element stores where W % 4 != 0. Cutting
+//   either store changes the time by under 3 % (tools/enc1_breakdown.py):
+//   they overlap the next tile.
+//   Shared memory per CTA: w1 147,456 + t0 2 x 16 x 10 x 36 x 4 = 46,080 +
+//   x patch 2 x 3 x 12 x 40 x 4 = 11,520 + w0 64 x 28 x 4 = 7,168 + b0, b1,
+//   a0, a1 528 = 212,752 B (of 232,448): one CTA of 256 threads an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -427,24 +467,188 @@ enc1_bf16_kernel(const uint16_t* __restrict__ x,    // (B, 3, H+4, W+4) bf16 bit
 
 namespace cc {
 
-constexpr int TH = 8, TW = 32;            // output tile
-constexpr int XH = TH + 4, XW = TW + 4;   // input patch
-constexpr int T0H = TH + 2, T0W = TW + 2; // t0 patch
-constexpr int CHUNK = 32;                 // output channels per c1 pass
-constexpr int NT = 256;                   // 64 2x2 blocks x 4 groups of 8 channels
+constexpr int TH = 8, TW = 32;  // output tile
+constexpr int T0H = TH + 2;     // t0 rows of a tile (1-pixel halo)
+constexpr int T0S = TW + 4;     // t0 row stride and computed width (TW + 2 are read)
+constexpr int XH = TH + 4;      // x-patch rows
+constexpr int XS = TW + 8;      // x-patch row stride (c0 reads T0S + 2 columns)
+constexpr int CC = 16;          // t0 channels per chunk
+constexpr int NCH = C / CC;     // chunks per tile
+constexpr int NT = 256;         // 8 warps; warp g owns output channels 8g..8g+7
+constexpr int W0S = 28;         // w0 row stride: 27 taps and a zero
+constexpr int C0_TASKS = (T0H / 2) * (T0S / 4);      // per t0 channel, 2 rows x 4 columns each
+constexpr int C0_ROUNDS = (C0_TASKS + 15) / 16;     // a half-warp's turns at its channel
 
-constexpr int WS_FLOATS = C * 9 * CHUNK;
-constexpr int XS_FLOATS = 3 * XH * XW;
-constexpr int W0_FLOATS = C * 27;
+constexpr int W1_FLOATS = C * 9 * C;
+constexpr int T0_FLOATS = CC * T0H * T0S;
+constexpr int XP_FLOATS = 3 * XH * XS;
+constexpr int W0_FLOATS = C * W0S;
 constexpr int BA_FLOATS = 132;  // b0[64], b1[64], a0, a1, padding to 16 bytes
-constexpr size_t SMEM =
-    sizeof(float) * (WS_FLOATS + XS_FLOATS + W0_FLOATS + BA_FLOATS + C * T0H * T0W);
+constexpr int SMEM = 4 * (W1_FLOATS + 2 * T0_FLOATS + 2 * XP_FLOATS + W0_FLOATS + BA_FLOATS);
+static_assert(TH == 8 && TW == 32, "the lane map: 4 x 2 rows, 8 x 4 columns a warp");
+static_assert((NT / 32) * 8 == C && 2 * (NT / 32) == CC, "c1: 8 channels a warp; c0: 2");
+static_assert(T0S % 4 == 0 && XS % 4 == 0 && T0_FLOATS % 4 == 0 && XP_FLOATS % 4 == 0 &&
+                  W0S % 4 == 0, "16-byte alignment of every row and region");
+static_assert(XS >= T0S + 2 && T0S >= TW + 2, "windows inside their rows");
+static_assert(SMEM <= 232448, "shared memory per CTA");
+static_assert(2 * XP_FLOATS >= 4 * T0S, "c1's loads past a chunk stay in shared memory");
 
-// one CTA per image x (8-row, 32-column) output tile: the input patch and
-// t0 (tile plus 1-px halo) in shared memory, then c1 in two passes of 32
-// output channels, each with its slice of w1 in shared memory. Each thread
-// owns one 2x2 output block for 8 channels, so the pool happens in
-// registers; threads of a warp share their channels (weight broadcasts).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// t0 channels chunk*CC .. chunk*CC + CC-1 of the tile whose x patch is xp,
+// into t0c: half-warp h of warp w computes chunk channel 2w + h with its 27
+// weights in registers, a task (a lane's turn) 2 rows x 4 columns of it
+__device__ __forceinline__ void c0(const float* xp, float* t0c, int chunk, const float* w0s,
+                                   const float* bas, float a0, int warp, int lane) {
+  const int ch = 2 * warp + (lane >> 4), co = chunk * CC + ch;
+  float w[W0S];
+#pragma unroll
+  for (int j = 0; j < W0S / 4; ++j) {
+    const float4 v = reinterpret_cast<const float4*>(w0s + co * W0S)[j];
+    w[4 * j] = v.x, w[4 * j + 1] = v.y, w[4 * j + 2] = v.z, w[4 * j + 3] = v.w;
+  }
+  const float b = bas[co];
+  for (int round = 0; round < C0_ROUNDS; ++round) {
+    const int task = round * 16 + (lane & 15);
+    if (task >= C0_TASKS) break;
+    const int rp = task / (T0S / 4), cb = task % (T0S / 4);
+    float acc[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+    // x row s feeds t0 row r at ky = s - r: each output still sums in
+    // (ci, ky, kx) order
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float* xr = xp + (ci * XH + 2 * rp + s) * XS + 4 * cb;
+        const float4 u = *reinterpret_cast<const float4*>(xr);
+        const float2 v = *reinterpret_cast<const float2*>(xr + 4);
+        const float xv[6] = {u.x, u.y, u.z, u.w, v.x, v.y};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int ky = s - r;
+          if (ky < 0 || ky > 2) continue;
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[r][q] = fmaf(w[(ci * 3 + ky) * 3 + kx], xv[q + kx], acc[r][q]);
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float4*>(t0c + (ch * T0H + 2 * rp + r) * T0S + 4 * cb) =
+          make_float4(prelu(acc[r][0] + b, a0), prelu(acc[r][1] + b, a0),
+                      prelu(acc[r][2] + b, a0), prelu(acc[r][3] + b, a0));
+  }
+}
+
+// c1 over the chunk's CC input channels: acc[k][4 dy + dx] is channel
+// 8 warp + k at tile row 2 lr + dy, column 4 lc + dx. The next channel's t0
+// window is loaded ahead of its use. Past the chunk's last channel those
+// loads read the next region of shared memory (the other t0 buffer or the x
+// patches) and go unused: a branch around them cost 22 %
+// (tools/enc1_breakdown.py, guarded_loads_ahead).
+__device__ __forceinline__ void c1(const float* t0c, const float* w1c, float (&acc)[8][8],
+                                   int lr, int lc) {
+  const float* tb = t0c + 2 * lr * T0S + 4 * lc;
+  float4 nu[4];
+  float2 nv[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    nu[r] = *reinterpret_cast<const float4*>(tb + r * T0S);
+    nv[r] = *reinterpret_cast<const float2*>(tb + r * T0S + 4);
+  }
+#pragma unroll 1
+  for (int ci = 0; ci < CC; ++ci) {
+    float p[4][6];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      p[r][0] = nu[r].x, p[r][1] = nu[r].y, p[r][2] = nu[r].z, p[r][3] = nu[r].w;
+      p[r][4] = nv[r].x, p[r][5] = nv[r].y;
+    }
+    const float* tn = tb + (ci + 1) * T0H * T0S;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      nu[r] = *reinterpret_cast<const float4*>(tn + r * T0S);
+      nv[r] = *reinterpret_cast<const float2*>(tn + r * T0S + 4);
+    }
+    const float* wc = w1c + ci * 9 * C;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int ky = t / 3, kx = t % 3;
+      const float4 wa = *reinterpret_cast<const float4*>(wc + t * C);
+      const float4 wz = *reinterpret_cast<const float4*>(wc + t * C + 4);
+      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wz.x, wz.y, wz.z, wz.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 4; ++dx)
+            acc[k][4 * dy + dx] = fmaf(wv[k], p[dy + ky][dx + kx], acc[k][4 * dy + dx]);
+    }
+  }
+}
+
+// the epilogue from registers: l1 and l2_in of the thread's 8 channels at
+// rows oy, oy + 1 and columns ox .. ox + 3 of image b. H is even and rows
+// come in pairs, so a thread's rows are both inside or both outside; W is
+// even, so its columns are 4, 2 (W % 4 == 2) or 0 inside, whole pool windows.
+__device__ __forceinline__ void store(const float (&acc)[8][8], float* __restrict__ l1,
+                                      float* __restrict__ l2, const float* b1, float a1, int b,
+                                      int oy, int ox, int H, int W, bool vec, int warp) {
+  if (oy >= H || ox >= W) return;
+  const int H2 = H / 2, W2 = W / 2;
+  const bool full = vec && ox + 4 <= W;
+#pragma unroll
+  for (int kl = 0; kl < 8; ++kl) {
+    const int co = 8 * warp + kl;
+    const float bias = b1[co];
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = prelu(acc[kl][j] + bias, a1);
+    float* lo = l1 + (((size_t)b * C + co) * H + oy) * W + ox;
+    if (full) {
+      *reinterpret_cast<float4*>(lo) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(lo + W) = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      for (int dx = 0; dx < 4 && ox + dx < W; ++dx) {
+        lo[dx] = v[dx];
+        lo[W + dx] = v[4 + dx];
+      }
+    }
+  }
+#pragma unroll
+  for (int kp = 0; kp < 8; ++kp) {
+    const int co = 8 * warp + kp;
+    const float bias = b1[co];
+    float m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the window's four l1 values in row order, as the first port's kernel
+      float mm = -INFINITY;
+      mm = fmaxf(mm, prelu(acc[kp][2 * h] + bias, a1));
+      mm = fmaxf(mm, prelu(acc[kp][2 * h + 1] + bias, a1));
+      mm = fmaxf(mm, prelu(acc[kp][4 + 2 * h] + bias, a1));
+      mm = fmaxf(mm, prelu(acc[kp][5 + 2 * h] + bias, a1));
+      m[h] = mm;
+    }
+    float* po = l2 + (((size_t)b * C + co) * H2 + oy / 2) * W2 + ox / 2;
+    if (full) {
+      *reinterpret_cast<float2*>(po) = make_float2(m[0], m[1]);
+    } else {
+      po[0] = m[0];
+      if (ox + 2 < W) po[1] = m[1];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(NT, 1)
 enc1_f32_kernel(const float* __restrict__ x,   // (B, 3, H+4, W+4)
                 const float* __restrict__ w0,  // (64, 3, 3, 3)
@@ -452,109 +656,96 @@ enc1_f32_kernel(const float* __restrict__ x,   // (B, 3, H+4, W+4)
                 const float* __restrict__ ba,  // b0[64], b1[64], a0, a1
                 float* __restrict__ l1,        // (B, 64, H, W)
                 float* __restrict__ l2,        // (B, 64, H/2, W/2)
-                int H, int W) {
+                int B, int H, int W, int tiles_y, int tiles_x) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ws = reinterpret_cast<float*>(smem_raw);  // [64*9][CHUNK]
-  float* xs = ws + WS_FLOATS;                      // [3][XH][XW]
-  float* w0s = xs + XS_FLOATS;                     // [64][27]
-  float* bas = w0s + W0_FLOATS;                    // [132]
-  float* t0s = bas + BA_FLOATS;                    // [64][T0H][T0W]
+  float* w1s = reinterpret_cast<float*>(smem_raw);  // [ci][tap][co]
+  float* t0s = w1s + W1_FLOATS;                     // 2 x [CC][T0H][T0S]
+  float* xs = t0s + 2 * T0_FLOATS;                  // 2 x [3][XH][XS]
+  float* w0s = xs + 2 * XP_FLOATS;                  // [co][W0S]
+  float* bas = w0s + W0_FLOATS;                     // b0, b1, a0, a1
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int per_img = tiles_y * tiles_x, n_tiles = B * per_img;
+  int tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lr = lane >> 3, lc = lane & 7;
   const int HP = H + 4, WP = W + 4;
-  const float* xb = x + (size_t)b * 3 * HP * WP;
 
-  for (int i = tid; i < XS_FLOATS; i += NT) {
-    const int c = i / (XH * XW), r = (i / XW) % XH, q = i % XW;
-    const int gy = y0 + r, gx = x0 + q;
-    xs[i] = (gy < HP && gx < WP) ? xb[((size_t)c * HP + gy) * WP + gx] : 0.f;
-  }
-  for (int i = tid; i < W0_FLOATS; i += NT) w0s[i] = w0[i];
-  for (int i = tid; i < 2 * C + 2; i += NT) bas[i] = ba[i];
-  __syncthreads();
-
-  // c0 over the tile plus halo; positions past the image hold values no
-  // stored output reads
-  const float a0 = bas[2 * C], a1 = bas[2 * C + 1];
-  for (int i = tid; i < C * T0H * T0W; i += NT) {
-    const int co = i / (T0H * T0W), r = (i / T0W) % T0H, q = i % T0W;
-    const float* wc = w0s + co * 27;
-    float acc = 0.f;
-#pragma unroll
-    for (int ci = 0; ci < 3; ++ci)
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx)
-          acc = fmaf(wc[(ci * 3 + ky) * 3 + kx], xs[(ci * XH + r + ky) * XW + q + kx], acc);
-    t0s[i] = prelu(acc + bas[co], a0);
-  }
-
-  const int sub = tid >> 6;  // warp-uniform group of 8 output channels
-  const int blk = tid & 63;
-  const int br = blk >> 4, bc = blk & 15;
-  const int oy = y0 + 2 * br, ox = x0 + 2 * bc;
-  // H and W are even, so a block whose corner is inside is inside whole
-  const bool valid = oy < H && ox < W;
-  const int H2 = H / 2, W2 = W / 2;
-
-  for (int pass = 0; pass < C / CHUNK; ++pass) {
-    __syncthreads();  // t0s complete; the previous pass is done with ws
-    for (int i = tid; i < WS_FLOATS / 4; i += NT) {
-      const int row = i / (CHUNK / 4), q = i % (CHUNK / 4);
-      reinterpret_cast<float4*>(ws)[i] =
-          reinterpret_cast<const float4*>(w1 + (size_t)row * C + pass * CHUNK)[q];
+  // the x patch of tile t into buf by cp.async; zero outside x_pad (those
+  // t0 values feed no stored output)
+  auto load_x = [&](int t, float* buf) {
+    const int b = t / per_img, rem = t % per_img;
+    const int y0 = (rem / tiles_x) * TH, x0 = (rem % tiles_x) * TW;
+    const float* xb = x + (size_t)b * 3 * HP * WP;
+    const uint32_t base = smem_addr(buf);
+    for (int i = tid; i < XP_FLOATS; i += NT) {
+      const int c = i / (XH * XS), r = (i / XS) % XH, q = i % XS;
+      const int gy = y0 + r, gx = x0 + q;
+      const bool in = gy < HP && gx < WP;
+      const float* src = in ? xb + ((size_t)c * HP + gy) * WP + gx : x;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(base + 4 * i),
+                   "l"(src), "r"(in ? 4 : 0)
+                   : "memory");
     }
-    __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 
-    float acc[8][4];
+  // the whole of w1, once per CTA, then the first tile's x patch
+  const uint32_t w1_addr = smem_addr(w1s);
+  for (int i = tid; i < W1_FLOATS / 4; i += NT)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(w1_addr + 16 * i),
+                 "l"(w1 + 4 * i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  load_x(tile, xs);
+  for (int i = tid; i < W0_FLOATS; i += NT) {
+    const int co = i / W0S, k = i % W0S;
+    w0s[i] = k < 27 ? w0[co * 27 + k] : 0.f;
+  }
+  for (int i = tid; i < 2 * C + 2; i += NT) bas[i] = ba[i];
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  const float a0 = bas[2 * C], a1 = bas[2 * C + 1];
+  const bool vec = (W % 4) == 0 && (reinterpret_cast<size_t>(l1) & 15) == 0 &&
+                   (reinterpret_cast<size_t>(l2) & 7) == 0;
+  // warps w and w + 4 share a scheduler: one runs c0 before c1, the other after
+  const bool c0_first = warp < 4;
+
+  c0(xs, t0s, 0, w0s, bas, a0, warp, lane);
+  __syncthreads();
+  float acc[8][8];
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int b = tile / per_img, rem = tile % per_img;
+    const int y0 = (rem / tiles_x) * TH, x0 = (rem % tiles_x) * TW;
+    const int next = tile + gridDim.x;
+    const float* xcur = xs + (it & 1) * XP_FLOATS;
+    float* xnext = xs + ((it + 1) & 1) * XP_FLOATS;
+    // the buffer of the tile before: its last reader passed a barrier
+    if (next < n_tiles) load_x(next, xnext);
 #pragma unroll
     for (int k = 0; k < 8; ++k)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
+      for (int j = 0; j < 8; ++j) acc[k][j] = 0.f;
 
-    for (int ci = 0; ci < C; ++ci) {
-      float p[4][4];
-      const float* tp = t0s + (ci * T0H + 2 * br) * T0W + 2 * bc;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) p[r][q] = tp[r * T0W + q];
-      const float* wp = ws + ci * 9 * CHUNK + sub * 8;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-        const float4 wa = *reinterpret_cast<const float4*>(wp + tap * CHUNK);
-        const float4 wb = *reinterpret_cast<const float4*>(wp + tap * CHUNK + 4);
-        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-#pragma unroll
-          for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-            for (int dx = 0; dx < 2; ++dx)
-              acc[k][dy * 2 + dx] = fmaf(wv[k], p[dy + ky][dx + kx], acc[k][dy * 2 + dx]);
-      }
+    // chunk k's t0 is in buffer k & 1; c0 fills the other one with chunk
+    // k + 1, or with the next tile's chunk 0 from the next x patch
+#pragma unroll 1
+    for (int chunk = 0; chunk < NCH; ++chunk) {
+      const bool last = chunk + 1 == NCH;
+      const bool more = !last || next < n_tiles;
+      const float* xsrc = last ? xnext : xcur;
+      float* t0n = t0s + ((chunk + 1) & 1) * T0_FLOATS;
+      const int nchunk = last ? 0 : chunk + 1;
+      if (c0_first && more) c0(xsrc, t0n, nchunk, w0s, bas, a0, warp, lane);
+      c1(t0s + (chunk & 1) * T0_FLOATS, w1s + chunk * CC * 9 * C + 8 * warp, acc, lr, lc);
+      if (!c0_first && more) c0(xsrc, t0n, nchunk, w0s, bas, a0, warp, lane);
+      // this thread's copies of the next x patch have landed; the barrier
+      // shows them to the CTA before the last chunk's c0 reads them
+      if (chunk == NCH - 2) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
     }
 
-    if (valid) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int co = pass * CHUNK + sub * 8 + k;
-        const float bias = bas[C + co];
-        float* lo = l1 + (((size_t)b * C + co) * H + oy) * W + ox;
-        float m = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float v = prelu(acc[k][j] + bias, a1);
-          lo[(j >> 1) * W + (j & 1)] = v;
-          m = fmaxf(m, v);
-        }
-        l2[(((size_t)b * C + co) * H2 + oy / 2) * W2 + ox / 2] = m;
-      }
-    }
+    store(acc, l1, l2, bas + C, a1, b, y0 + 2 * lr, x0 + 4 * lc, H, W, vec, warp);
   }
 }
 
@@ -592,19 +783,22 @@ extern "C" int enc1_bf16_launch(const void* x, const void* w0, const void* w1p, 
   return (int)cudaGetLastError();
 }
 
-// fp32: w0 (64, 3, 3, 3), w1 as (ci, ky, kx, co).
+// fp32: w0 (64, 3, 3, 3), w1 as (ci, ky, kx, co), 16-byte aligned; tiles_y =
+// ceil(H / 8), tiles_x = ceil(W / 32); n_ctas persistent CTAs walk the B *
+// tiles_y * tiles_x tiles (ops/enc1.py computes all three).
 extern "C" int enc1_f32_launch(const void* x, const void* w0, const void* w1, const void* ba,
-                               void* l1, void* l2, int B, int H, int W, void* stream) {
-  if (bad_shape(B, H, W) || B > 65535 || H / cc::TH >= 65535)
+                               void* l1, void* l2, int B, int H, int W, int tiles_y,
+                               int tiles_x, int n_ctas, void* stream) {
+  if (bad_shape(B, H, W) || tiles_y != (H + cc::TH - 1) / cc::TH ||
+      tiles_x != (W + cc::TW - 1) / cc::TW || n_ctas < 1 ||
+      (long long)B * tiles_y * tiles_x > 0x7fffffffLL || (reinterpret_cast<size_t>(w1) & 15))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(cc::enc1_f32_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)cc::SMEM);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, cc::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + cc::TW - 1) / cc::TW, (H + cc::TH - 1) / cc::TH, B);
-  cc::enc1_f32_kernel<<<grid, cc::NT, cc::SMEM, static_cast<cudaStream_t>(stream)>>>(
+  cc::enc1_f32_kernel<<<n_ctas, cc::NT, cc::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w0),
       static_cast<const float*>(w1), static_cast<const float*>(ba), static_cast<float*>(l1),
-      static_cast<float*>(l2), H, W);
+      static_cast<float*>(l2), B, H, W, tiles_y, tiles_x);
   return (int)cudaGetLastError();
 }

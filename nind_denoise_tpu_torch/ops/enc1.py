@@ -19,8 +19,22 @@ on NCHW: x_pad (B, 3, H+4, W+4) -> (l1 (B, F, H, W), l2_in (B, F, H/2, W/2)).
   walk 16 x 16 output tiles, two at a time; the header of ``csrc/enc1.cu``
   has the shared-memory reckoning. ``tile_grid``, ``cta_count`` and
   ``walk`` give the order the kernel walks the tiles in.
-- fp32 (only under ``--compute_dtype float32``): the CUDA-core kernel;
-  TF32 would break its 1e-4 x max(1, |l1|) limit.
+- fp32: the CUDA-core kernel, since TF32 would break its 1e-4 x max(1,
+  |l1|) limit and its bit-equality with the plain version. It runs under
+  ``--compute_dtype float32`` (CLI, server) and wherever the model is fp32:
+  the trainer's validation crops, the cGAN's generator forward before each
+  discriminator step, a data-parallel rank's learn and the bands of the
+  sharded whole-image test. Every output keeps one operation sequence (fmaf
+  chains over (ci, ky, kx) for t0 and over ci outer, tap inner for l1, from
+  0, then bias and PReLU), so it is bit-equal to the plain version on the
+  card. Persistent CTAs, at most one per SM, each load the whole of w1
+  (147,456 B) once and walk F32_TH x F32_TW output tiles; a tile's t0 comes
+  in chunks of F32_CHUNK channels, double-buffered, c0 of the next chunk
+  beside c1 of this one; each thread sums 8 channels x 8 pixels (two pool
+  windows) in registers and stores them with 16-byte writes along W.
+  ``f32_tile_grid``, ``f32_cta_count`` and ``f32_walk`` give its walk,
+  ``f32_smem_bytes`` its shared memory; the header of ``csrc/enc1.cu`` has
+  the reckoning.
 """
 
 from __future__ import annotations
@@ -38,11 +52,13 @@ from .conv import prelu
 FUNIT = 64  # the kernel's compiled channel count
 TILE = 16  # output tile edge of the bf16 kernel
 GROUPS = 2  # tiles in flight per CTA of the bf16 kernel
+F32_TH, F32_TW = 8, 32  # output tile of the fp32 kernel
+F32_CHUNK = 16  # t0 channels per chunk of the fp32 kernel
 launches = 0
 
 _SIG = {
     "enc1_bf16_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "enc1_f32_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "enc1_f32_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
 
@@ -107,6 +123,39 @@ def walk(cta: int, group: int, n_ctas: int, bsz: int, h: int, w: int):
         yield t // (ty * tx), (rem // tx) * TILE, (rem % tx) * TILE
 
 
+def f32_tile_grid(h: int, w: int):
+    """(tiles_y, tiles_x) of the fp32 kernel's F32_TH x F32_TW output tiles
+    over an (h, w) image, clipped at the edges. Both edges are even, so no
+    2x2 pool window straddles two tiles."""
+    return -(-h // F32_TH), -(-w // F32_TW)
+
+
+def f32_cta_count(n_tiles: int, n_sms: int) -> int:
+    """Persistent CTAs of the fp32 kernel: one per SM at most, one tile
+    each at least."""
+    return max(1, min(n_sms, n_tiles))
+
+
+def f32_walk(cta: int, n_ctas: int, bsz: int, h: int, w: int):
+    """The tiles that CTA ``cta`` of the fp32 kernel computes, in its order,
+    as (image, first row, first column): tile t is image t // (tiles_y *
+    tiles_x), then row-major within the image."""
+    ty, tx = f32_tile_grid(h, w)
+    for t in range(cta, bsz * ty * tx, n_ctas):
+        rem = t % (ty * tx)
+        yield t // (ty * tx), (rem // tx) * F32_TH, (rem % tx) * F32_TW
+
+
+def f32_smem_bytes() -> int:
+    """The fp32 kernel's dynamic shared memory, as its header reckons it: w1
+    [ci][tap][co], two t0 chunks (F32_TH + 2 rows, F32_TW + 4 columns), two
+    x patches (F32_TH + 4 rows, F32_TW + 8 columns), w0 rows of 28, and b0,
+    b1, a0, a1 padded to 16 bytes."""
+    t0 = F32_CHUNK * (F32_TH + 2) * (F32_TW + 4)
+    xp = 3 * (F32_TH + 4) * (F32_TW + 8)
+    return 4 * (FUNIT * 9 * FUNIT + 2 * t0 + 2 * xp + FUNIT * 28 + 132)
+
+
 def supported(x: torch.Tensor, funit: int) -> bool:
     """Whether ``enc1`` takes this input and width (H and W even; the CUDA
     kernel also needs funit 64 and bf16/fp32)."""
@@ -144,6 +193,7 @@ def enc1(x_pad, w0, b0, a0, w1, b1, a1):
     lib = _build.library("enc1", _SIG)
     with _build.on_device(x_pad):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         if x_pad.dtype == torch.bfloat16:
             ws = (w0, w1, b0, b1, a0, a1)
             if any(t.dtype != torch.bfloat16 for t in ws):
@@ -154,7 +204,6 @@ def enc1(x_pad, w0, b0, a0, w1, b1, a1):
             w0p, b0c, b1c, a0c, a1c = (t.contiguous() for t in (w0, b0, b1, a0, a1))
             w1p = pack_w1(w1)
             ty, tx = tile_grid(h, w)
-            n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
             err = lib.enc1_bf16_launch(x_pad.data_ptr(), w0p.data_ptr(), w1p.data_ptr(),
                                        b0c.data_ptr(), b1c.data_ptr(), a0c.data_ptr(),
                                        a1c.data_ptr(), l1.data_ptr(), l2.data_ptr(),
@@ -165,9 +214,11 @@ def enc1(x_pad, w0, b0, a0, w1, b1, a1):
             w1r = w1.float().permute(1, 2, 3, 0).contiguous()  # (ci, ky, kx, co)
             ba = torch.cat([b0.float().reshape(-1), b1.float().reshape(-1),
                             a0.float().reshape(1), a1.float().reshape(1)])
+            ty, tx = f32_tile_grid(h, w)
             err = lib.enc1_f32_launch(x_pad.data_ptr(), w0f.data_ptr(), w1r.data_ptr(),
                                       ba.data_ptr(), l1.data_ptr(), l2.data_ptr(),
-                                      bsz, h, w, stream)
+                                      bsz, h, w, ty, tx, f32_cta_count(bsz * ty * tx, n_sms),
+                                      stream)
     global launches
     with _build.COUNT_LOCK:
         launches += 1
