@@ -33,6 +33,20 @@ limit as nvidia-smi reports them):
    with the kernel launch counts of that run; then a small image in fp32
    on the card and on the CPU, whose pre-encode uint8 images must agree to
    1 LSB;
+5b. fetch: the port's downloads. The model table's: ``denoise_cli`` with
+   no model flag, the table's entry at a missing path whose ``url`` is the
+   ``file://`` URI of end_to_end's checkpoint, on the same TIFF in bf16: the
+   checkpoint fetched byte-equal with no ``.part`` left, the pre-encode
+   uint8 within 1 LSB of end_to_end's ``--model_path`` run, K2 once a tile
+   batch and K1 10 times, nothing fetched by a second run, and a missing
+   URL raising the port's ``RuntimeError`` with no JPEG and no ``.part``.
+   The NIND downloader (``tools/dl_ds.py``): the dataset_tools and eval
+   phases' seeded scenes served by a stand-in for Wikimedia Commons on a
+   loopback port (the API's ``imageinfo`` answers and the files' bytes),
+   downloaded from a two-set manifest in the pinned form into the tree
+   those phases read, every file sha1-equal to its source; a second run
+   fetches nothing; a file served corrupt exits 1 after MAX_ATTEMPTS tries
+   and is named;
 6. serve: ``DenoiseService`` behind ``serve()`` on a loopback port, bf16,
    batch 8, cs 504 / ucs 480, driven with urllib: six 6 MP 16-bit PNGs
    that must equal the engine + RL run directly, bit for bit; 480 x 480
@@ -123,7 +137,7 @@ limit as nvidia-smi reports them):
    but the permutation's, the sampler's time per batch, and steps per
    second against the host loader's.
 19. dataset_tools: two seeded sets laid out as NIND (an ISO100 baseline and
-   three noisy ISOs, 6 MP 16-bit PNGs): ``crop_ds`` at 256 / 192 (1,408
+   three noisy ISOs, 6 MP 16-bit PNGs, as fetch downloaded them): ``crop_ds`` at 256 / 192 (1,408
    crops), the MS-SSIM audit of every crop pair on the card
    (``make_dataset_crops_list``, 1,056 pairs: crops/s, pairs/s, the scoring
    share of its wall, one pair's device time and kernel count; no kernel
@@ -703,7 +717,8 @@ def phase_end_to_end(torch, card, tmp, kernel_mods):
     denoise_cli.main(argv)  # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
     t0 = time.time()
-    out, launches = counted(torch, kernel_mods, lambda: denoise_cli.main(argv))
+    (out, (ref,), _), launches = counted(torch, kernel_mods,
+                                         lambda: cli_run(denoise_cli, argv))
     wall = time.time() - t0
     plan = TilePlan(2000, 3000, 504, 480, 6)
     batches = (plan.ipervl + 1) * math.ceil((plan.iperhl + 1) / 8)
@@ -744,6 +759,224 @@ def phase_end_to_end(torch, card, tmp, kernel_mods):
     check(diff <= 1, f"small image: card and CPU differ by {diff} LSB")
     emit(card, phase="end_to_end_small", shape=[150, 170, 3], compute_dtype="float32",
          max_lsb_diff_cuda_vs_cpu=diff)
+    return launches, (out, ref)
+
+
+class FakeCommons:
+    """Wikimedia Commons on a loopback port for the NIND downloader: the
+    API's ``imageinfo`` queries for the files of ``src`` (``<set>/<name>``),
+    answered with their URL here and their sha1, and the files' bytes
+    (those named in ``corrupt`` served with their first byte flipped).
+    ``fetched`` counts the file requests by name. ``close`` stops it."""
+
+    def __init__(self, src, corrupt=()):
+        import http.server
+        import threading
+        import urllib.parse
+
+        from nind_denoise_tpu_torch.utils import utilities
+
+        self.paths = {f: os.path.join(d, f) for d, _, fs in os.walk(src) for f in fs}
+        self.sha1 = {f: utilities.checksum(p, "sha1") for f, p in self.paths.items()}
+        self.corrupt, self.fetched = set(corrupt), collections.Counter()
+        commons = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def send(self, body, ctype):
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path, _, query = self.path.partition("?")
+                if path == "/w/api.php":
+                    q = dict(urllib.parse.parse_qsl(query))
+                    name = q["titles"].split(":", 1)[1]
+                    info = {"url": f"{commons.base}/files/{name}", "sha1": commons.sha1[name],
+                            "timestamp": "2021-05-21T00:00:00Z"}
+                    page = {"title": q["titles"], "imageinfo": [info]}
+                    self.send(json.dumps({"query": {"pages": {"1": page}}}).encode(),
+                              "application/json")
+                    return
+                name = path.rsplit("/", 1)[1]
+                commons.fetched[name] += 1
+                with open(commons.paths[name], "rb") as f:
+                    body = bytearray(f.read())
+                if name in commons.corrupt:
+                    body[0] ^= 0xFF
+                self.send(bytes(body), "application/octet-stream")
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.api = self.base + "/w/api.php"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def phase_fetch(torch, card, tmp, kernel_mods, tif, ckpt, ref, scenes, hw):
+    """The port's downloads. (a) The model table's: ``denoise_cli`` with no
+    model flag, the table's entry pointing at a missing path under the
+    phase's directory and at ``ckpt`` by a ``file://`` URL, on
+    phase_end_to_end's TIFF in bf16: the checkpoint fetched byte-equal, no
+    ``.part``, the pre-encode uint8 within 1 LSB of ``ref`` (end_to_end's
+    ``--model_path`` run: its JPEG path and image), K2 once a tile batch and
+    K1 10 times; a second run fetches nothing; a missing URL raises
+    RuntimeError and writes neither a JPEG nor a ``.part``. (b) The NIND
+    downloader: seeded scenes (``write_scenes``) served by ``FakeCommons``
+    on a loopback port, ``tools.dl_ds.main`` on a two-set manifest in the
+    pinned form into ``scenes`` (the tree the dataset_tools and eval phases
+    read), every file sha1-equal to its source; a second run fetches
+    nothing; a file served corrupt exits 1 after MAX_ATTEMPTS fetches and
+    is named. Returns the launch counts of (a)'s first run."""
+    import pathlib
+    import shutil
+    import urllib.request
+
+    import cv2
+    import yaml
+
+    from nind_denoise_tpu_torch.pipeline import denoise_cli
+    from nind_denoise_tpu_torch.tools import dl_ds
+    from nind_denoise_tpu_torch.utils import utilities
+
+    t_phase = time.time()
+    d = os.path.join(tmp, "fetch")
+    ref_jpg, ref_u8 = ref
+    fetches = []
+    retrieve = urllib.request.urlretrieve
+
+    def timed_retrieve(url, *a, **kw):
+        t0 = time.time()
+        try:
+            return retrieve(url, *a, **kw)
+        finally:
+            fetches.append((url, time.time() - t0))
+
+    def table(path, url):
+        return with_model_entry(denoise_cli, "nind_generator_650.pt", {
+            "path": path, "url": url, "network": "UtNet", "funit": FUNIT,
+            "activation": "PReLU"})
+
+    dest = os.path.join(d, "models", "nind", "generator_1.npz")
+    outs = [os.path.join(d, f"out{k}") for k in range(3)]
+    for o in outs:
+        os.makedirs(o)
+    argv = [tif, "--tiff-input", "--compute_dtype", "bfloat16", "--batch_size", "8"]
+    urllib.request.urlretrieve = timed_retrieve
+    restore = table(dest, pathlib.Path(os.path.abspath(ckpt)).as_uri())
+    try:
+        t0 = time.time()
+        (out, seen, _), launches = counted(torch, kernel_mods,
+                                           lambda: cli_run(denoise_cli, argv + ["-o", outs[0]]))
+        cli_wall = time.time() - t0
+        check(len(fetches) == 1, f"fetch: {len(fetches)} downloads, expected 1")
+        model_s = fetches[0][1]
+        check(utilities.checksum(dest, "sha1") == utilities.checksum(ckpt, "sha1")
+              and not os.path.exists(dest + ".part"), "fetch: the checkpoint is not a copy")
+        jpg = cv2.imread(str(out))
+        check(jpg is not None and jpg.shape == ref_u8.shape,
+              f"fetch: bad output {out} ({None if jpg is None else jpg.shape}, "
+              f"expected {ref_u8.shape})")
+        diff = max_lsb(seen[0], ref_u8)
+        check(diff <= 1, f"fetch: {diff} LSB off end_to_end's --model_path run")
+        jpeg_equal = open(str(out), "rb").read() == open(str(ref_jpg), "rb").read()
+        batches = cli_batches(*ref_u8.shape[:2])
+        check(launches["enc1"] == batches and launches["rl_iter"] == 10,
+              f"fetch: launches {launches}, expected enc1 {batches} and rl_iter 10")
+        t0 = time.time()
+        cli_run(denoise_cli, argv + ["-o", outs[1]])
+        again_wall = time.time() - t0
+        check(len(fetches) == 1, "fetch: a present checkpoint was fetched again")
+        restore()
+        missing = os.path.join(d, "models", "missing", "generator_1.npz")
+        restore = table(missing, pathlib.Path(d, "nowhere.npz").as_uri())
+        try:
+            cli_run(denoise_cli, argv + ["-o", outs[2]])
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        check(raised is not None and "could not download" in raised and missing in raised,
+              f"fetch: a missing URL did not raise the port's error ({raised})")
+        check(not os.listdir(outs[2]) and not os.path.exists(missing)
+              and not os.path.exists(missing + ".part"),
+              f"fetch: the failed fetch left {os.listdir(outs[2])}")
+    finally:
+        restore()
+        urllib.request.urlretrieve = retrieve
+
+    # (b) the NIND downloader over loopback into the research loop's tree
+    src = os.path.join(d, "commons")
+    t0 = time.time()
+    write_scenes(src, hw)
+    scenes_s = time.time() - t0
+    sets = sorted(os.listdir(src))
+    manifest = {"last_update": "2021-05-21", "sets": {
+        f"cam{i}": {"ext": "png", "scenes": {s: [int(iso[3:]) for iso, _ in SCENE_ISOS]}}
+        for i, s in enumerate(sets)}}
+    man = os.path.join(d, "manifest.yaml")
+    with open(man, "w") as f:
+        yaml.safe_dump(manifest, f)
+    names = dl_ds.manifest_titles(manifest)
+    commons = FakeCommons(src)
+    api = dl_ds.API
+    dl_ds.API = commons.api
+    try:
+        t0 = time.time()
+        rc, _ = captured(dl_ds.main, ["--target_dir", scenes, "--manifest", man])
+        dl_s = time.time() - t0
+        check(rc == 0 and sorted(commons.fetched) == sorted(names)
+              and set(commons.fetched.values()) == {1}, f"dl_ds: rc {rc}, {commons.fetched}")
+        got = {f: os.path.join(dp, f) for dp, _, fs in os.walk(scenes) for f in fs}
+        check(sorted(got) == sorted(names), f"dl_ds wrote {sorted(got)}")
+        check(all(utilities.checksum(p, "sha1") == commons.sha1[f] for f, p in got.items()),
+              "dl_ds: a file differs from its source")
+        nbytes = sum(os.path.getsize(p) for p in got.values())
+        commons.fetched.clear()
+        t0 = time.time()
+        rc, _ = captured(dl_ds.main, ["--target_dir", scenes, "--manifest", man])
+        skip_s = time.time() - t0
+        check(rc == 0 and not commons.fetched, f"dl_ds again: rc {rc}, {commons.fetched}")
+    finally:
+        commons.close()
+        dl_ds.API = api
+    bad = names[0]
+    commons = FakeCommons(src, corrupt={bad})
+    dl_ds.API = commons.api
+    try:
+        t0 = time.time()
+        rc, text = captured(dl_ds.main, ["--target_dir", os.path.join(d, "corrupt"),
+                                         "--manifest", man])
+        corrupt_s = time.time() - t0
+        errors = text.split("ERRORS:", 1)[-1]
+        corrupt_rc, corrupt_fetches = rc, commons.fetched[bad]
+        check(rc == 1 and corrupt_fetches == dl_ds.MAX_ATTEMPTS
+              and f"{bad}: download failed" in errors and errors.count("failed") == 1,
+              f"dl_ds with {bad} corrupt: rc {rc}, {corrupt_fetches} fetches, {errors}")
+    finally:
+        commons.close()
+        dl_ds.API = api
+    shutil.rmtree(src)
+    shutil.rmtree(os.path.join(d, "corrupt"))
+    emit(card, phase="fetch", seconds=time.time() - t_phase,
+         model={"bytes": os.path.getsize(dest), "download_s": model_s,
+                "mb_per_s": os.path.getsize(dest) / 1e6 / model_s, "cli_wall_s": cli_wall,
+                "cli_wall_present_s": again_wall, "launches": launches,
+                "tile_batches": batches, "max_lsb_vs_model_path": diff,
+                "jpeg_bytes_equal": jpeg_equal, "missing_url_raises": raised},
+         dl_ds={"files": len(names), "bytes": nbytes, "download_s": dl_s,
+                "mb_per_s": nbytes / 1e6 / dl_s, "skip_existing_s": skip_s,
+                "corrupt_exit": corrupt_rc, "corrupt_fetches": corrupt_fetches,
+                "corrupt_s": corrupt_s, "scenes_written_s": scenes_s, "shape": [*hw, 3]})
     return launches
 
 
@@ -2846,8 +3079,9 @@ def device_work(torch, fn, calls=1):
 
 
 def phase_dataset_tools(torch, card, tmp, kernel_mods, scenes, hw, n_check=16):
-    """Seeded scenes written to ``scenes`` (``write_scenes``), crop_ds at
-    cs 256 / stride 192 on them, the MS-SSIM audit of
+    """The seeded scenes under ``scenes`` (``write_scenes``' tree, which
+    phase_fetch downloads there), crop_ds at cs 256 / stride 192 on them,
+    the MS-SSIM audit of
     every crop pair on the card (``make_dataset_crops_list``) with 16 of its
     scores against the CPU's on the same files, the CSV through
     ``PickyDenoisingDatasetFromList``, and ``pick_validation_set`` from a
@@ -2862,8 +3096,6 @@ def phase_dataset_tools(torch, card, tmp, kernel_mods, scenes, hw, n_check=16):
     from nind_denoise_tpu_torch.train.dataset import PickyDenoisingDatasetFromList
 
     t_phase = time.time()
-    write_scenes(scenes, hw)
-    scenes_s = time.time() - t_phase
     n_sets, n_isos = len(os.listdir(scenes)), len(SCENE_ISOS)
     n_images = n_sets * n_isos
     grid = len(crop_ds.crop_grid(hw[1], hw[0], 256, 192))
@@ -2912,7 +3144,7 @@ def phase_dataset_tools(torch, card, tmp, kernel_mods, scenes, hw, n_check=16):
     alone_ms = time_ms(torch, lambda: score.msssim(*pair), 20)
     pair_device_ms, pair_kernels = device_work(torch, lambda: score.msssim(*pair), 10)
     score_s = sum(u[0] for u in uploads) + sum(e[0] for e in scores)
-    emit(card, phase="dataset_tools", seconds=time.time() - t_phase, scenes_s=scenes_s,
+    emit(card, phase="dataset_tools", seconds=time.time() - t_phase,
          scenes=n_images, shape=[*hw, 3], cs=256, stride=192, crops=n_crops, crop_s=crop_s, crops_per_s=n_crops / crop_s,
          audit_pairs=len(rows), audit_wall_s=audit_s, audit_pairs_per_s=len(rows) / audit_s,
          audit_score_host_s=score_s, audit_score_share_of_wall=score_s / audit_s,
@@ -4698,10 +4930,15 @@ def main() -> int:
     qconv_rec = phase_qconv(torch, card)
     deriche_rec = phase_deriche(torch, card)
     with tempfile.TemporaryDirectory() as tmp:
-        by_path = {"denoise_cli": phase_end_to_end(torch, card, tmp, kernel_mods)}
-        by_path["serve"], serve_inputs, model = phase_serve(torch, card, tmp, kernel_mods)
+        e2e, e2e_out = phase_end_to_end(torch, card, tmp, kernel_mods)
+        by_path = {"denoise_cli": e2e}
         # phase_end_to_end's 6 MP TIFF and checkpoint
         tif, ckpt = os.path.join(tmp, "img.tif"), os.path.join(tmp, "generator_1.npz")
+        # the NIND tree the dataset_tools and eval phases read, downloaded here
+        scenes = os.path.join(tmp, "NIND")
+        by_path["fetch"] = phase_fetch(torch, card, tmp, kernel_mods, tif, ckpt, e2e_out,
+                                       scenes, HW)
+        by_path["serve"], serve_inputs, model = phase_serve(torch, card, tmp, kernel_mods)
         by_path["cli_plugin"] = phase_cli_plugin(torch, card, tmp, kernel_mods, tif)
         by_path["cli_raw"] = phase_cli_raw(torch, card, tmp, kernel_mods, ckpt)
         by_path["cli_dir"] = phase_cli_dir(torch, card, tmp, kernel_mods, ckpt)
@@ -4711,7 +4948,6 @@ def main() -> int:
         by_path.update(phase_rl_variants(torch, card, tmp, kernel_mods, tif, ckpt))
         by_path["train"] = phase_train(torch, card, tmp, kernel_mods)
         by_path["gan"], by_path["gan_device_cache"] = phase_gan(torch, card, tmp, kernel_mods)
-        scenes = os.path.join(tmp, "NIND")
         by_path["dataset_tools"] = phase_dataset_tools(torch, card, tmp, kernel_mods, scenes, HW)
         by_path["eval"] = phase_eval(torch, card, tmp, kernel_mods, scenes, ckpt, HW)
         by_path["unet_cli"] = phase_unet_cli(torch, card, tmp, kernel_mods, tif)

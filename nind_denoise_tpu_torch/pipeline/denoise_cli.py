@@ -46,8 +46,11 @@ mixed-shape stragglers one request a device through ``parallel/engine_pool``.
 With torchrun's variables (``WORLD_SIZE`` > 1) each process takes every
 ``WORLD_SIZE``-th file (``parallel/mesh.process_shard``).
 
-The model table's download is left out: a missing checkpoint raises
-``FileNotFoundError`` naming its path and the table's URL.
+A checkpoint missing at the table's path (or at ``--model_path``, which
+keeps the entry's ``url``) is fetched from the entry's ``url``
+(``external.download_model``) before the run, as the JAX CLI does; a failed
+fetch raises ``RuntimeError``. An entry without a ``url`` raises
+``FileNotFoundError`` naming the path.
 
     python -m nind_denoise_tpu_torch.pipeline.denoise_cli img.tif --tiff-input -o out/
 """
@@ -154,17 +157,20 @@ def get_stage_filepaths(outpath: pathlib.Path, stage: int):
 
 def resolve_model(args, config) -> dict:
     """The ``models`` table entry of ``--model``, its path overridden by
-    ``--model_path`` and made absolute against the working directory.
-    Raises FileNotFoundError when the checkpoint is not there."""
+    ``--model_path`` and made absolute against the working directory. A
+    missing checkpoint is downloaded from the entry's ``url``; without one,
+    FileNotFoundError names the path."""
     mcfg = dict(config["models"][args.model])
     if args.model_path:
         mcfg["path"] = args.model_path
     if not os.path.isabs(mcfg["path"]):
         mcfg["path"] = os.path.join(os.getcwd(), mcfg["path"])
+    if not os.path.exists(mcfg["path"]) and "url" in mcfg:
+        print(f"Model checkpoint missing; downloading from {mcfg['url']} ...")
+        external.download_model(mcfg["url"], mcfg["path"])
     if not os.path.exists(mcfg["path"]):
-        where = f"; it is published at {mcfg['url']}" if "url" in mcfg else ""
         raise FileNotFoundError(
-            f"model checkpoint not found: {mcfg['path']}{where} (place it there "
+            f"model checkpoint not found: {mcfg['path']} (place it there "
             f"or pass --model_path)")
     return mcfg
 

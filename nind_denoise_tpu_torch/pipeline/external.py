@@ -5,8 +5,8 @@ A copy of ``nind_denoise_tpu/pipeline/external.py`` with the same argv
 contracts (the reference's src/denoise.py:397-410 stage 1, :448-460
 stage 2, :464-475 gmic). RAW development stays on the host in darktable;
 RL deblur runs on the GPU by default (ops/rl_deblur.py) and gmic is the
-opt-in alternative. ``download_model`` is left out: the port fetches
-nothing, and a missing checkpoint raises (pipeline/denoise_cli.py).
+opt-in alternative. ``download_model`` fetches the model table's published
+checkpoint (pipeline/denoise_cli.py ``resolve_model``).
 """
 
 from __future__ import annotations
@@ -85,3 +85,20 @@ def run_gmic_rl_deblur(cmd_gmic: str, in_fpath: pathlib.Path,
          "-/", "256", "cut", "0,255", "round",
          "-o", f"{out_name},{quality}"],
         cwd=in_fpath.parent, check=True)
+
+
+def download_model(url: str, dest: str) -> None:
+    """Fetch the published checkpoint (denoise.py:423-428 equivalent)."""
+    import urllib.request
+
+    os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
+    tmp = dest + ".part"
+    try:
+        urllib.request.urlretrieve(url, tmp)
+        os.replace(tmp, dest)
+    except Exception as e:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(
+            f"could not download model from {url} ({e}); place the checkpoint "
+            f"at {dest} manually") from e

@@ -4,10 +4,10 @@ the CPU (``--compute_dtype float32``): RAW input, --tiff-input with a
 sidecar (stage 2 runs), --use-gmic, --debug with --nightmode (the kept
 intermediates), --no_deblur, --copy_num and a RAW without a sidecar. The
 pre-encode uint8 images agree within 1 LSB and the stand-ins' command lines
-are equal. Then the port alone: a missing checkpoint or darktable raises,
-networks the engine does not run raise, ``--devices 2`` runs, and a
-directory loads its checkpoint once with every output equal to its own
-single run."""
+are equal. Then the port alone: a failed checkpoint fetch or a missing
+darktable raises, networks the engine does not run raise, ``--devices 2``
+runs, and a directory loads its checkpoint once with every output equal to
+its own single run."""
 
 import json
 import os
@@ -158,13 +158,27 @@ def test_darktable_paths_match_jax(tmp_path, monkeypatch, checkpoint, case):
 
 
 def test_missing_checkpoint_raises_naming_it(tmp_path, monkeypatch):
+    """A missing table checkpoint is fetched from the table's URL; a failed
+    fetch (here refused, so nothing leaves the machine) raises naming the
+    path and the URL, and leaves no JPEG and no ``.part``."""
+    import urllib.request
+
+    def refuse(url, filename=None, *a, **k):
+        if filename:
+            with open(filename, "wb") as f:
+                f.write(b"partial")
+        raise OSError(f"refused: {url}")
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", refuse)
     monkeypatch.chdir(tmp_path)
     tif = _tiff(tmp_path / "img.tif")
-    with pytest.raises(FileNotFoundError) as e:
+    with pytest.raises(RuntimeError, match="could not download") as e:
         port_cli.main([str(tif), "--tiff-input", "--device", "cpu"])
     assert os.path.join("models", "nind", "generator_650.pt") in str(e.value)
     assert "https://" in str(e.value)
     assert not (tmp_path / "img.jpg").exists()
+    assert not (tmp_path / "models" / "nind" / "generator_650.pt.part").exists()
+    assert not (tmp_path / "models" / "nind" / "generator_650.pt").exists()
 
 
 def test_raw_without_darktable_raises(tmp_path, checkpoint):

@@ -77,8 +77,10 @@ train = {"nind_denoise_tpu_torch.train." + m for m in ("dataset", "loop", "optim
 assert train | {"nind_denoise_tpu_torch.ops.losses"} <= set(sys.modules)
 tools = {"nind_denoise_tpu_torch.eval." + m for m in ("score", "denoise_dir", "grapher")} | {
     "nind_denoise_tpu_torch.tools." + m for m in (
-        "crop_ds", "filter_dataset_by_iso", "make_dataset_crops_list", "pick_validation_set")}
+        "crop_ds", "dl_ds", "filter_dataset_by_iso", "make_dataset_crops_list",
+        "pick_validation_set")}
 assert tools <= set(sys.modules)
+from nind_denoise_tpu_torch.pipeline.external import download_model
 parallel = {"nind_denoise_tpu_torch.parallel." + m for m in (
     "mesh", "sharded_engine", "batch_engine", "engine_pool", "spatial", "tensor_parallel")}
 assert parallel <= set(sys.modules)
